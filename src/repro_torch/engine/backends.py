@@ -1,7 +1,8 @@
-"""Backend registry of the port's inference engine.
+"""Backend registry of the port's inference engine, counterparts of the
+JAX package's ``engine/backends.py``.
 
 One optimized :class:`~repro_torch.core.graph.CNNGraph`, two execution
-substrates, counterparts of the JAX package's ``engine/backends.py``:
+substrates:
 
 * ``"torch"`` — plain eager PyTorch (:func:`torch_exec.forward`), the
   counterpart of ``"xla"``;
@@ -12,6 +13,13 @@ Both hold the graph's weights as buffers of a :class:`CNNModule` on one
 device.  ``worker()`` hands each server worker a handle with its own
 ``torch.cuda.Stream`` over the same weights, so workers' batches can
 overlap on the card.
+
+And the LM workload: ``"cuda-lm"`` (:class:`CudaLMBackend`, the
+counterpart of ``"pallas-lm"``) runs the LM stack of
+:mod:`repro_torch.models` with prefill through the hand-written
+flash-attention and linear-scan kernels, behind the
+:class:`LMBackend` contract (prefill / decode / generate /
+predict_batch / describe over a :class:`KVCacheHandle`).
 """
 from __future__ import annotations
 
@@ -25,7 +33,11 @@ import numpy as np
 import torch
 
 from ..core.graph import CNNGraph
-from ..core.torch_exec import CNNModule, resolve_device
+from ..models import lm as lm_mod
+from ..models.kernel_policy import DEFAULT_KERNELS, KernelPolicy
+from ..models.stack import init_params
+from ..core.torch_exec import (CNNModule, resolve_device,
+                               use_fp32_convolutions)
 
 _REGISTRY: Dict[str, Type["Backend"]] = {}
 
@@ -141,7 +153,16 @@ class _ModuleBackend(Backend):
 
 @register_backend("torch")
 class TorchBackend(_ModuleBackend):
-    """Plain eager PyTorch: the reference the kernels are held to."""
+    """Plain eager PyTorch: the reference the kernels are held to.
+
+    On a CUDA device it computes its convolutions in full fp32: building
+    it sets ``torch.backends.cudnn.allow_tf32 = False`` for the whole
+    process (:func:`~repro_torch.core.torch_exec.use_fp32_convolutions`),
+    since cuDNN's default runs fp32 convolutions in TF32."""
+
+    def __init__(self, graph: CNNGraph, device=None):
+        use_fp32_convolutions(resolve_device(device))
+        super().__init__(graph, device)
 
 
 @register_backend("cuda")
@@ -151,3 +172,149 @@ class CudaBackend(_ModuleBackend):
     Dense/Flatten."""
 
     kernels = True
+
+
+# =========================================================== LM workload ====
+
+class KVCacheHandle:
+    """An opaque decode-state handle: the per-layer KV/recurrence caches
+    plus the next write position.  Returned by :meth:`LMBackend.prefill`,
+    advanced in place by :meth:`LMBackend.decode`."""
+
+    __slots__ = ("caches", "pos", "batch")
+
+    def __init__(self, caches, pos: int, batch: int):
+        self.caches = caches
+        self.pos = pos
+        self.batch = batch
+
+    def __repr__(self):
+        return f"KVCacheHandle(batch={self.batch}, pos={self.pos})"
+
+
+class LMBackend(Backend):
+    """The LM execution contract: explicit prefill/decode steps over a
+    :class:`KVCacheHandle`, a greedy :meth:`generate` loop, and
+    ``predict_batch`` mapping int32 token ids ``(N, T)`` to full-sequence
+    float32 logits ``(N, T, V)``.  An LM backend has no CNN graph."""
+
+    workload = "lm"
+    graph = None
+
+    def __init__(self):  # no graph: Backend.__init__ reads its shapes
+        pass
+
+    @abc.abstractmethod
+    def prefill(self, tokens: np.ndarray):
+        """``(B, T)`` int32 prompts -> ``(last_logits (B, V),
+        KVCacheHandle)``."""
+
+    @abc.abstractmethod
+    def decode(self, handle: KVCacheHandle, tokens: np.ndarray) -> np.ndarray:
+        """One step: ``(B,)`` int32 tokens against ``handle`` ->
+        ``(B, V)`` logits.  Advances the handle in place."""
+
+    @abc.abstractmethod
+    def describe(self) -> dict:
+        """A JSON-safe dict of what this backend is."""
+
+    def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
+        """Greedy decode: ``(B, T)`` int32 -> ``(B, max_new)`` int32."""
+        prompts = np.asarray(prompts, np.int32)
+        if max_new < 1:
+            return np.zeros((prompts.shape[0], 0), np.int32)
+        logits, handle = self.prefill(prompts)
+        tok = np.argmax(logits, axis=-1).astype(np.int32)
+        out = [tok]
+        for _ in range(max_new - 1):
+            logits = self.decode(handle, tok)
+            tok = np.argmax(logits, axis=-1).astype(np.int32)
+            out.append(tok)
+        return np.stack(out, axis=1)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@register_backend("cuda-lm")
+class CudaLMBackend(LMBackend):
+    """The LM stack (:mod:`repro_torch.models`) on one device, prefill
+    through the :class:`~repro_torch.models.kernel_policy.KernelPolicy`'s
+    attention and scan (by default the hand-written flash-attention and
+    linear-scan kernels), decode through plain torch.  Runs under
+    ``inference_mode`` on the current stream; constructed by
+    :class:`repro_torch.engine.LMSession`."""
+
+    def __init__(self, model_cfg, *, params=None, max_context: int = 128,
+                 decode_batch: int = 1, policy=None, seed: int = 0,
+                 device=None):
+        super().__init__()
+        self.model_cfg = model_cfg
+        self.device = resolve_device(device)
+        self.max_context = int(max_context)
+        self.decode_batch = int(decode_batch)
+        self.policy = KernelPolicy(*(policy or DEFAULT_KERNELS)).validate()
+        if params is None:
+            gen = torch.Generator(self.device).manual_seed(seed)
+            params = init_params(model_cfg, gen, self.device)
+        self.params = _tree_to(params, self.device)
+        self._prefill_fn = lm_mod.make_prefill_step(
+            model_cfg, max_len=self.max_context, kernels=self.policy)
+        self._decode_fn = (None if model_cfg.is_encoder
+                           else lm_mod.make_decode_step(model_cfg, self.policy))
+
+    def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
+
+    # ----------------------------------------------------- LM contract --
+    def prefill(self, tokens: np.ndarray):
+        tokens = np.asarray(tokens, np.int32)
+        b, t = tokens.shape
+        if t > self.max_context:
+            raise ValueError(
+                f"prompt length {t} > max_context {self.max_context}")
+        with torch.inference_mode():
+            logits, caches, pos = self._prefill_fn(
+                self.params, {"tokens": self._tokens(tokens)})
+            out = logits.cpu().numpy()
+        return out, KVCacheHandle(caches, pos, batch=b)
+
+    def decode(self, handle: KVCacheHandle, tokens: np.ndarray) -> np.ndarray:
+        if self._decode_fn is None:
+            raise ValueError(
+                f"{self.model_cfg.name} is encoder-only: no decode step")
+        if handle.pos >= self.max_context:
+            raise ValueError(
+                f"position {handle.pos} is past max_context "
+                f"{self.max_context}")
+        tokens = np.asarray(tokens, np.int32).reshape(handle.batch, 1)
+        with torch.inference_mode():
+            logits, handle.caches, handle.pos = self._decode_fn(
+                self.params, handle.caches, self._tokens(tokens), handle.pos)
+            return logits.cpu().numpy()
+
+    # ------------------------------------------------- shared contract --
+    def predict_batch(self, x: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            return lm_mod.forward(self.params, self.model_cfg,
+                                  {"tokens": self._tokens(x)},
+                                  self.policy).cpu().numpy()
+
+    def describe(self) -> dict:
+        return {
+            "name": self.name,
+            "workload": self.workload,
+            "arch": self.model_cfg.name,
+            "dtype": self.model_cfg.dtype,
+            "device": str(self.device),
+            "vocab_size": self.model_cfg.vocab_size,
+            "max_context": self.max_context,
+            "decode_batch": self.decode_batch,
+            "kernel_policy": dict(self.policy._asdict()),
+            "n_params": lm_mod.param_count(self.model_cfg),
+        }

@@ -40,6 +40,11 @@ class InferenceSession:
             config = SessionConfig()
         elif isinstance(config, dict):
             config = SessionConfig(**config)
+        if config.lm is not None:
+            raise TypeError(
+                "SessionConfig.lm is an LM workload: construct "
+                "repro_torch.engine.LMSession(config=cfg) instead of "
+                "InferenceSession (which serves CNN graphs)")
         self.config = config
         self.backend_name = config.backend
         self.precision = config.precision

@@ -29,13 +29,20 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     "conv2d_nhwc_f32": [_P] * 4 + [_I] * 14 + [_F, _P],
     "conv2d_nhwc_bf16": [_P] * 4 + [_I] * 14 + [_F, _P],
     "maxpool2d_nhwc_f32": [_P] * 2 + [_I] * 10 + [_P],
     "maxpool2d_nhwc_bf16": [_P] * 2 + [_I] * 10 + [_P],
+    "flash_attention_f32": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3
+    + [_F, _P],
+    "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3
+    + [_F, _P],
+    "linear_scan_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "linear_scan_bf16": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` layer).
 
-Each repeats its kernel's arithmetic with tensor ops, with the same NHWC /
-HWIO layouts at the API, and calls no library convolution or pooling, so
-that holding a CUDA kernel against its plain version on the card checks
-the kernel and not cuDNN.  The CPU tests run these; on the card
+Each repeats its kernel's arithmetic with tensor ops, with the same
+layouts at the API (NHWC / HWIO for the CNN kernels, (B,H,T,D) for
+attention, (B,T,H,N) for the scan), and calls no library convolution,
+pooling or attention, so that holding a CUDA kernel against its plain
+version on the card checks the kernel and not cuDNN.  The CPU tests run these; on the card
 ``chip_smoke.py`` holds each CUDA kernel against them.  The main path
 never calls them on a CUDA tensor: :mod:`repro_torch.kernels.ops` sends
 CUDA tensors to the kernels.
@@ -16,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.graph import _conv_pads
+
+NEG_INF = -1e30
 
 
 def activation(y: torch.Tensor, act: Optional[str],
@@ -75,3 +78,46 @@ def maxpool2d_ref(x, *, size=(2, 2), strides=None):
     for _, _, xs in window_taps(x, size, strides or size):
         out = xs if out is None else torch.maximum(out, xs)
     return out.contiguous()
+
+
+def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
+                  scale: Optional[float] = None):
+    """Plain version of ``csrc/flash_attention.cu``: dense masked softmax
+    attention in fp32; q (B,Hq,T,D), k/v (B,Hkv,S,D), the kv head of q
+    head h is h // (Hq // Hkv).  Masked scores are -1e30 and their p is
+    forced to 0, so a fully masked row gives 0; output in ``q.dtype``."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, hkv, hq // hkv, t, d)
+    kf = k.float()[:, :, None]
+    logits = (qg @ kf.transpose(-1, -2)) * scale       # (B,Hkv,G,T,S)
+    qi = torch.arange(t, device=q.device)[:, None]
+    kj = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= (qi - kj) < window
+    logits = logits.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(logits, dim=-1).masked_fill(~mask, 0.0)
+    o = p @ v.float()[:, :, None]
+    return o.reshape(b, hq, t, d).to(q.dtype)
+
+
+def linear_scan_ref(decay, k, v, r, s0):
+    """Plain version of ``csrc/linear_scan.cu``: a loop over T of
+    ``S = decay_t * S + k_t^T v_t; y_t = r_t S`` in fp32.
+
+    decay/k/r (B,T,H,N); v (B,T,H,M); s0 (B,H,N,M).  Returns
+    ``(y (B,T,H,M) in v.dtype, final state (B,H,N,M) fp32)``."""
+    d, kk, vv, rr = (a.float() for a in (decay, k, v, r))
+    state = s0.float()
+    ys = []
+    for t in range(kk.shape[1]):
+        state = (d[:, t, :, :, None] * state
+                 + kk[:, t, :, :, None] * vv[:, t, :, None, :])
+        ys.append((rr[:, t, :, :, None] * state).sum(dim=-2))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.empty(v.shape, dtype=torch.float32, device=v.device))
+    return y.to(v.dtype), state

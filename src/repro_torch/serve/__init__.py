@@ -9,13 +9,15 @@
         y = srv.predict(frame)
         print(srv.stats()["latency_p99_us"], srv.stats()["qps"])
 """
-from .server import (InferenceResult, InferenceServer, RequestTimeout,
-                     ServeError, ServerClosed, ServerConfig, ServerOverloaded)
+from .server import (InferenceResult, InferenceServer, LMTokenServer,
+                     RequestTimeout, ServeError, ServerClosed, ServerConfig,
+                     ServerOverloaded)
 from .stats import ServerStats
 
 __all__ = [
     "InferenceResult",
     "InferenceServer",
+    "LMTokenServer",
     "RequestTimeout",
     "ServeError",
     "ServerClosed",

@@ -41,7 +41,8 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 
-from ..engine.backends import Backend
+from ..engine.backends import Backend, LMBackend
+from ..engine.lm import LMSession
 from ..engine.session import InferenceSession
 
 from .stats import ServerStats
@@ -161,7 +162,9 @@ class InferenceServer:
                          else session)
         self.session = (session if isinstance(session, InferenceSession)
                         else None)
-        self.in_shape = tuple(self._backend.graph.input_shape)
+        graph = self._backend.graph
+        self.in_shape = (tuple(graph.input_shape) if graph is not None
+                         else None)  # LM backends: token-level, no frame
         self._queue: "queue.Queue[InferenceResult]" = queue.Queue(
             maxsize=config.max_queue)
         self.stats_ = ServerStats(window=config.stats_window)
@@ -192,7 +195,10 @@ class InferenceServer:
             raise ValueError(
                 f"submit expects one frame of {self.in_shape}, "
                 f"got {x.shape}")
-        req = InferenceResult(x, self._cond)
+        return self._enqueue(InferenceResult(x, self._cond))
+
+    def _enqueue(self, req: InferenceResult) -> InferenceResult:
+        """Bounded-queue admission shared by every request flavor."""
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -262,13 +268,22 @@ class InferenceServer:
 
     # -- worker side ---------------------------------------------------------
 
+    def _warmup(self, handle: Backend) -> None:
+        """One frame off the latency path of the first real request (the
+        first kernel call builds and loads the library)."""
+        handle.predict_batch(
+            np.zeros((1,) + self.in_shape, dtype=np.float32))
+
+    def _execute(self, handle: Backend, live) -> list:
+        """Run one aggregated batch; returns per-request outputs in
+        order.  Frames stack into one ``predict_batch`` call; the token
+        workload overrides this."""
+        return list(handle.predict_batch(np.stack([r.x for r in live])))
+
     def _worker_loop(self) -> None:
         handle = self._backend.worker()
         if self.config.warmup:
-            # one frame off the latency path of the first real request
-            # (the first kernel call builds and loads the library)
-            handle.predict_batch(
-                np.zeros((1,) + self.in_shape, dtype=np.float32))
+            self._warmup(handle)
         deadline_s = self.config.batch_deadline_ms / 1e3
         try:
             while True:
@@ -321,7 +336,7 @@ class InferenceServer:
         self.stats_.on_batch(len(live))
         t_exec = time.perf_counter()
         try:
-            out = handle.predict_batch(np.stack([r.x for r in live]))
+            out = self._execute(handle, live)
         except Exception as e:  # surface to every waiter
             for req in live:
                 self.stats_.on_failure()
@@ -340,3 +355,77 @@ class InferenceServer:
             qwaits.append((t_deq - t_sub) * 1e6)
         self._finish_many(live)
         self.stats_.on_complete_batch(totals, qwaits, exec_us, now=t_done)
+
+
+class LMTokenServer(InferenceServer):
+    """Token-level requests through the same bounded queue / worker pool
+    / aggregation / stats machinery the frame server uses.
+
+    >>> sess = LMSession(config=SessionConfig(backend="cuda-lm",
+    ...                                       lm=LMConfig(...)))
+    >>> with LMTokenServer(sess, config=ServerConfig(workers=1)) as srv:
+    ...     toks = srv.generate(prompt_ids, max_new=16)
+
+    A request is a 1-D int prompt plus ``max_new``; the result is the
+    ``(max_new,)`` greedy continuation.  Aggregated batches are grouped
+    by ``(prompt_len, max_new)``: compatible requests ride one
+    :meth:`~repro_torch.engine.backends.LMBackend.generate` call (one
+    prefill, shared decode steps), incompatible ones still execute in
+    the same dequeue round.
+    """
+
+    def __init__(self, session, *, config: Optional[ServerConfig] = None):
+        backend = (session.backend if isinstance(session, LMSession)
+                   else session)
+        if not isinstance(backend, LMBackend):
+            raise TypeError(
+                f"LMTokenServer needs an LMSession or LMBackend, got "
+                f"{type(session).__name__}")
+        super().__init__(backend, config=config)
+
+    # -- client side ---------------------------------------------------------
+
+    def submit(self, tokens: np.ndarray,
+               max_new: int = 16) -> InferenceResult:
+        """Enqueue one 1-D int prompt; the future resolves to the
+        ``(max_new,)`` int32 greedy continuation."""
+        if self._closing.is_set():
+            self.stats_.on_reject(closed=True)
+            raise ServerClosed("server is shut down")
+        toks = np.asarray(tokens)
+        if toks.ndim != 1 or not np.issubdtype(toks.dtype, np.integer):
+            raise ValueError(
+                f"submit expects a 1-D int token prompt, got shape "
+                f"{toks.shape} dtype {toks.dtype}")
+        if max_new < 1:
+            raise ValueError(f"max_new {max_new} < 1")
+        return self._enqueue(InferenceResult(
+            (np.ascontiguousarray(toks, np.int32), int(max_new)), self._cond))
+
+    def generate(self, tokens: np.ndarray, max_new: int = 16,
+                 timeout: Optional[float] = None) -> np.ndarray:
+        """Synchronous submit + wait."""
+        return self.submit(tokens, max_new).result(timeout)
+
+    def predict(self, x, timeout: Optional[float] = None):
+        raise TypeError("LMTokenServer serves tokens: use generate()")
+
+    # -- worker side ---------------------------------------------------------
+
+    def _warmup(self, handle) -> None:
+        # no frame shape to warm up with: the first request builds the
+        # kernel library if the session has not already
+        pass
+
+    def _execute(self, handle, live) -> list:
+        outs: list = [None] * len(live)
+        groups: Dict[tuple, list] = {}
+        for i, req in enumerate(live):
+            toks, max_new = req.x
+            groups.setdefault((toks.shape[0], max_new), []).append(i)
+        for (_, max_new), idxs in groups.items():
+            gen = handle.generate(np.stack([live[i].x[0] for i in idxs]),
+                                  max_new)
+            for j, i in enumerate(idxs):
+                outs[i] = gen[j]
+        return outs
