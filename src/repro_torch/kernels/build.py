@@ -9,7 +9,10 @@ shared library with a plain C interface::
 ``<hash>`` covers every source, header and flag, so an edit rebuilds and
 an unchanged tree reuses the library.  The directory lies under the
 repository's ``build/``, which git ignores.  A missing ``nvcc`` raises
-with the path that was tried; nothing falls back.
+with the path that was tried; nothing falls back.  The bf16
+flash-attention kernel takes its wgmma atoms from CuTe, whose headers
+are found under ``$CUTLASS_HOME/include`` (by default
+``/usr/local/cutlass``).
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+CUTLASS_INCLUDE = Path(os.environ.get("CUTLASS_HOME")
+                       or "/usr/local/cutlass") / "include"
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                              "-Xptxas", "-v")
+                              "-Xptxas", "-v", f"-I{CUTLASS_INCLUDE}")
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)

@@ -1,17 +1,27 @@
-"""Wrapper of the hand-written Hopper flash-attention kernel
+"""Wrapper of the hand-written Hopper flash-attention kernels: bf16 on
+the tensor cores (``csrc/flash_attention_sm90.cu``), fp32 outside them
 (``csrc/flash_attention.cu``).
 
 Replaces the JAX package's Pallas TPU kernel ``_flash_kernel`` /
 ``flash_attention_pallas`` (``kernels/flash_attention.py``): prefill
 attention with causal and sliding-window masks and GQA, online softmax
 in fp32, a fully masked row giving 0, output in ``q``'s type.  Bound by
-operations on the card (see the note in the source).  The TPU kernel's
-``block_q`` / ``block_k`` have no counterpart: the CUDA kernel's tiles
-are fixed and it masks the ragged edge, so any T and S work.
+operations on the card, at the bf16 tensor-core rate.  The bf16 kernel
+runs both products on the tensor cores (``wgmma``, tiles copied by TMA)
+and, unlike the TPU kernel, keeps p to about 16 bits (``bf16(p)`` plus
+``bf16(p - bf16(p))``, both multiplied with v) instead of rounding it
+once to bf16, so every output stays within one bf16 rounding of the fp32
+function of its inputs (one rounding of p breaks that on 24% of
+gemma3-4b-shaped outputs; see the note in the source).  The fp32 kernel
+stays off the tensor cores: TF32 keeps about 10 bits.  The TPU kernel's
+``block_q`` / ``block_k`` have no counterpart: the CUDA kernels' tiles
+are fixed and they mask the ragged edge, so any T and S work.
 
 q, k and v may be strided views (the model passes its (B,T,H,D)
 activations transposed, without a copy) as long as d is contiguous; the
-output has q's strides.
+output has q's strides.  TMA copies 16-byte aligned rows, so for bf16
+every base pointer and every (b, h, t) stride must be a multiple of 16
+bytes; anything else raises ``ValueError``.
 
 ``launches`` counts the kernel launches of this process; it is a plain
 integer, read and reset by ``chip_smoke.py``.
@@ -46,6 +56,18 @@ def _check(t: torch.Tensor, name: str, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous in its last dim")
 
 
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """The bf16 kernel's TMA copies: base pointer and every (b, h, t)
+    stride (of a dim longer than 1) a multiple of 16 bytes."""
+    if t.data_ptr() % 16 or any(
+            n > 1 and st * t.element_size() % 16
+            for n, st in zip(t.shape[:3], t.stride()[:3])):
+        raise ValueError(
+            f"{name}: the bf16 kernel needs a 16-byte aligned base pointer "
+            f"and (b, h, t) strides of whole 16-byte chunks, got pointer "
+            f"{t.data_ptr():#x}, strides {t.stride()}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
@@ -68,10 +90,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)  # q's strides: (B,T,H,D) memory stays so
     if o.numel() == 0:
         return o
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # o has q's strides or is contiguous: aligned with q
+        for a, name in ((q, "q"), (k, "k"), (v, "v")):
+            _check_aligned(a, name)
     scale = d ** -0.5 if scale is None else float(scale)
     lib = kernel_library()
-    fn = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.flash_attention_f32)
+    fn = lib.flash_attention_bf16 if bf16 else lib.flash_attention_f32
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b, hq, hkv, t, s, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

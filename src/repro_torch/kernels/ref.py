@@ -82,7 +82,8 @@ def maxpool2d_ref(x, *, size=(2, 2), strides=None):
 
 def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
                   scale: Optional[float] = None):
-    """Plain version of ``csrc/flash_attention.cu``: dense masked softmax
+    """Plain version of ``csrc/flash_attention.cu`` (fp32) and
+    ``csrc/flash_attention_sm90.cu`` (bf16): dense masked softmax
     attention in fp32; q (B,Hq,T,D), k/v (B,Hkv,S,D), the kv head of q
     head h is h // (Hq // Hkv).  Masked scores are -1e30 and their p is
     forced to 0, so a fully masked row gives 0; output in ``q.dtype``."""

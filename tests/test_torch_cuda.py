@@ -12,8 +12,9 @@ Tolerances: conv fp32 1e-5 (fp32 sums in another order), bf16 3e-2 (the
 output rounds to bf16), pool exact; whole nets rtol 1e-4 / atol 1e-5,
 the tolerance of ``tests/test_pallas_cnn_path.py``; flash attention
 fp32 2e-5 and bf16 3e-2, linear scan fp32 1e-4 and bf16 5e-2 and its
-two-halves state carry 1e-5, the tolerances of ``tests/test_kernels.py``.
-The CNN fixture switches TF32 off, since cuDNN's default keeps about
+two-halves state carry 1e-5, the tolerances of ``tests/test_kernels.py``;
+the bf16 flash kernel also within one bf16 rounding (2**-8 relative,
+1e-5 absolute) of the fp32 function of its inputs.  The CNN fixture switches TF32 off, since cuDNN's default keeps about
 three digits; ``test_torch_session_is_fp32_with_default_switches``
 leaves the switches at their defaults and shows the ``"torch"`` backend
 sets what it needs itself.
@@ -62,6 +63,18 @@ CUDA_FLASH_CASES = FLASH_CASES + [
     (1, 2, 1, 33, 16, True, 0),
     (1, 8, 4, 1100, 256, True, 1024),
 ]
+# the bf16 tensor-core kernel: every head dim, each under five masks and
+# layouts (b, hq, hkv, t, s, causal, window, (B,T,H,D) views): GQA groups
+# 1, 2 and 4, causal and not (S > T and S < T), windows None, 0, 16 and
+# 1024, ragged T of 33, 77, 130 and 1537
+BF16_FLASH_CASES = [
+    (1, 4, 2, 130, 130, True, None, False),
+    (1, 8, 2, 77, 77, True, 16, True),
+    (1, 2, 2, 33, 77, False, None, False),
+    (2, 4, 4, 130, 60, False, 30, True),
+    (1, 2, 1, 33, 33, True, 0, False),
+    (1, 4, 2, 1537, 1537, True, 1024, True),
+]
 SCAN_CASES = [  # (b, t, h, n, m): tests/test_kernels.py
     (1, 64, 2, 8, 16),
     (2, 128, 4, 16, 16),
@@ -78,10 +91,12 @@ def _rnd(seed, shape, scale=1.0):
             ).astype(np.float32)
 
 
-def flash_inputs(b, hq, hkv, t, d):
-    """q, k, v (numpy fp32) of the flash tests, from seeds 4, 5, 6."""
-    return (_rnd(4, (b, hq, t, d)), _rnd(5, (b, hkv, t, d)),
-            _rnd(6, (b, hkv, t, d)))
+def flash_inputs(b, hq, hkv, t, d, s=None):
+    """q, k, v (numpy fp32) of the flash tests, from seeds 4, 5, 6; k and
+    v have ``s`` keys (default ``t``)."""
+    s = t if s is None else s
+    return (_rnd(4, (b, hq, t, d)), _rnd(5, (b, hkv, s, d)),
+            _rnd(6, (b, hkv, s, d)))
 
 
 def scan_inputs(b, t, h, n, m):
@@ -192,6 +207,36 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, t, d, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("b,hq,hkv,t,s,causal,window,model_layout",
+                         BF16_FLASH_CASES)
+def test_flash_attention_bf16_kernel_within_one_rounding(
+        cuda, b, hq, hkv, t, s, causal, window, model_layout, d):
+    """The bf16 tensor-core kernel against the plain version at 3e-2, and
+    within one bf16 rounding (2**-8 relative, 1e-5 absolute) of the plain
+    version on the upcast inputs, the gate of ``chip_smoke.py``."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in flash_inputs(b, hq, hkv, t, d, s))
+    if model_layout:  # (B,T,H,D) activations viewed as (B,H,T,D)
+        q, k, v = (a.transpose(1, 2).contiguous().transpose(1, 2)
+                   for a in (q, k, v))
+    before = flash_mod.launches
+    got = flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    want32 = ref.attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
+    got = got.float().cpu().numpy()
+    np.testing.assert_allclose(got, want.float().cpu().numpy(), rtol=3e-2,
+                               atol=3e-2)
+    np.testing.assert_allclose(got, want32.cpu().numpy(), rtol=2.0 ** -8,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_reads_and_writes_strided_heads(cuda):
     """The model hands the kernel (B,T,H,D) activations transposed to
     (B,H,T,D) views: the same numbers as contiguous inputs, and the output
@@ -261,6 +306,11 @@ def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         flash_mod.flash_attention_cuda(q, q[:, :2], q[:, :2])
     with pytest.raises(ValueError, match="dtype"):
         flash_mod.flash_attention_cuda(q, q.bfloat16(), q)
+    # the bf16 kernel's 16-byte copies: a t stride of 33 elements and a
+    # base pointer 2 bytes off
+    qb = torch.zeros(1, 2, 8, 33, device=cuda, dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mod.flash_attention_cuda(qb, qb, qb)
     x = torch.zeros(1, 4, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="state dim"):
         scan_mod.linear_scan_cuda(x, x, x, x, torch.zeros(1, 1, 128, 128,

@@ -10,6 +10,8 @@ those of ``tests/test_kernels.py``: flash attention fp32 2e-5 and bf16
 3e-2, linear scan fp32 1e-4 and bf16 5e-2 (bf16 rounds at other places
 in the two frameworks), the two-halves state carry 1e-5.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.engine import LMConfig
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import linear_scan as scan_mod
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.ref import attention_ref
 from repro_torch.models.kernel_policy import (DEFAULT_KERNELS, PLAIN_KERNELS,
                                               KernelPolicy)
 from test_torch_cuda import FLASH_CASES, SCAN_CASES, flash_inputs, scan_inputs
@@ -65,6 +68,58 @@ def test_flash_attention_matches_every_pallas_tiling():
                                     block_q=bq, block_k=bk)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=2e-5, atol=2e-5)
+
+
+def _bf16_kernel_arithmetic(q, k, v, *, block_k, split_p):
+    """The bf16 CUDA kernel's arithmetic (``csrc/flash_attention_sm90.cu``)
+    in plain torch, causal: kv tiles of ``block_k`` keys; scores of the
+    bf16 inputs summed in fp32, scaled into the exp2 domain; online
+    softmax with fp32 m and l (l summed from the fp32 p); p.v from
+    ``p_hi = bf16(p)`` and ``p_lo = bf16(p - p_hi)``, both products summed
+    in fp32 (``split_p``), or from ``bf16(p)`` alone as the TPU kernel
+    does; one bf16 rounding of the output."""
+    t, d = q.shape[-2:]
+    c = d ** -0.5 * math.log2(math.e)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros(q.shape)
+    qi = torch.arange(t)[:, None]
+    for k0 in range(0, k.shape[-2], block_k):
+        kj = torch.arange(k0, min(k0 + block_k, k.shape[-2]))[None]
+        x = (qf @ kf[..., k0:k0 + block_k, :].transpose(-1, -2)) * c
+        x = x.masked_fill(kj > qi, -math.inf)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        m, l = m_new, alpha * l + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        vt = vf[..., k0:k0 + block_k, :]
+        pv = p_hi @ vt
+        if split_p:
+            pv = pv + (p - p_hi).bfloat16().float() @ vt
+        acc = alpha * acc + pv
+    return (acc / torch.where(l == 0, 1.0, l)).bfloat16()
+
+
+@pytest.mark.parametrize("split_p", [True, False])
+def test_bf16_kernel_keeps_p_to_one_output_rounding(split_p):
+    """The precision design of the bf16 kernel: with p split into hi and
+    lo bf16 parts every output lies within one bf16 rounding (2**-8
+    relative, 1e-5 absolute) of the fp32 function of the bf16 inputs;
+    one bf16 rounding of p, the TPU kernel's, breaks that bound (on about
+    a quarter of the outputs here)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 256, 64)).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    got = _bf16_kernel_arithmetic(q, k, v, block_k=64,
+                                  split_p=split_p).float()
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    outside = (got - want).abs() > 2.0 ** -8 * want.abs() + 1e-5
+    if split_p:
+        assert int(outside.sum()) == 0
+    else:
+        assert int(outside.sum()) > got.numel() // 10
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
