@@ -39,10 +39,12 @@ propagates and the script exits non-zero:
    busy share while serving;
 8. lm_kernels — flash attention and the linear scan against their plain
    versions on the card: the JAX suite's cases (flash fp32 2e-5 and
-   bf16 3e-2; scan fp32 1e-4 and bf16 5e-2), the archs' head dims, and
-   the main path's shapes; every bf16 output also within one rounding
+   bf16 3e-2; scan fp32 1e-4 and bf16 5e-2), the archs' head dims (80
+   included, with one hubert-xlarge layer at full width), the scan at
+   odd N, N 128, ragged M and T and with decays down to 1e-6, and the
+   main path's shapes; every bf16 output also within one rounding
    (2**-8 relative) of the fp32 function of the same inputs; the scan's
-   two-halves state carry at 1e-5;
+   two-halves state carry at 1e-5 (N 4, 64 and 128);
 9. lm_time   — per LM kernel at the main path's shapes (gemma3-4b's
    global and local attention layers, rwkv6-7b's scan; batch 4, 1536
    tokens): the kernel, its plain version and the library call where
@@ -135,9 +137,16 @@ FLASH_CASES = [  # (b, hq, hkv, t, d, causal, window): the JAX suite's
     (1, 4, 2, 192, 64, True, 100),
     # the archs' head dims, ragged T, every row masked (window 0)
     (1, 4, 2, 77, 120, True, 16), (2, 4, 4, 100, 128, False, 30),
-    (1, 2, 1, 33, 16, True, 0)]
+    (1, 2, 1, 33, 16, True, 0),
+    # head dim 80 (hubert-xlarge, zamba2-2.7b): GQA 1 and 2, windowed
+    (1, 4, 4, 100, 80, True, None), (1, 4, 2, 130, 80, True, 32),
+    (2, 4, 2, 70, 80, False, None)]
 SCAN_CASES = [(1, 64, 2, 8, 16), (2, 128, 4, 16, 16), (1, 96, 1, 4, 8),
-              (1, 33, 2, 32, 80)]  # (b, t, h, n, m)
+              (1, 33, 2, 32, 80),  # (b, t, h, n, m)
+              # N no power of two and N 128, M 80 and 10, T 1 and 1537
+              (1, 40, 2, 5, 16), (1, 40, 3, 48, 64), (1, 33, 2, 128, 64),
+              (2, 33, 2, 64, 80), (1, 33, 2, 16, 10), (2, 1, 2, 64, 64),
+              (1, 1537, 2, 64, 64)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -533,6 +542,7 @@ def main() -> int:
     from repro_torch.serve import LMTokenServer
 
     gemma, rwkv = ARCHS["gemma3-4b"], ARCHS["rwkv6-7b"]
+    hubert = ARCHS["hubert-xlarge"]  # one full-width layer at head dim 80
     heads = (gemma.n_heads, gemma.n_kv_heads, gemma.head_dim)
     rwkv_h, rwkv_n = rwkv.d_model // rwkv.ssm_head_dim, rwkv.ssm_head_dim
     layers = gemma.prologue + gemma.pattern * gemma.n_groups
@@ -549,8 +559,16 @@ def main() -> int:
                     for h in (hq, hkv, hkv)]
         return [rand((b, h, t, d), dtype) for h in (hq, hkv, hkv)]
 
-    def scan_inputs(b, t, h, n, m, dtype):
-        decay = (torch.sigmoid(rand((b, t, h, n))) * 0.5 + 0.5).to(dtype)
+    def scan_inputs(b, t, h, n, m, dtype, small_decays=False):
+        """decay in (0.5, 1), or with ``small_decays`` log-uniform in
+        [1e-6, 1] (RWKV6's exp(-exp(w)) spreads them so)."""
+        if small_decays:
+            decay = torch.from_numpy(np.exp(rng.uniform(
+                np.log(1e-6), 0.0, size=(b, t, h, n))).astype(
+                    np.float32)).to(dev)
+        else:
+            decay = torch.sigmoid(rand((b, t, h, n))) * 0.5 + 0.5
+        decay = decay.to(dtype)
         return ([decay] + [rand(shape, dtype, 0.3) for shape in
                            ((b, t, h, n), (b, t, h, m), (b, t, h, n))]
                 + [rand((b, h, n, m), f32, 0.1)])
@@ -566,7 +584,9 @@ def main() -> int:
     for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
         cases = [c + (False,) for c in FLASH_CASES] + [
             (LM_BATCH, *heads[:2], LM_PROMPT, heads[2], True, w, True)
-            for w, _ in flash_main.values()]
+            for w, _ in flash_main.values()] + [
+            (LM_BATCH, hubert.n_heads, hubert.n_kv_heads, LM_PROMPT,
+             hubert.head_dim, hubert.causal, None, True)]
         for b, hq, hkv, t, d, causal, window, model_layout in cases:
             q, k, v = attn_inputs(b, hq, hkv, t, d, dtype, model_layout)
             what = f"flash_attention {dtype} {(b, hq, hkv, t, d, window)}"
@@ -585,13 +605,16 @@ def main() -> int:
             key = str(dtype).replace("torch.", "")
             lm_err["flash_attention"][key] = max(
                 lm_err["flash_attention"].get(key, 0.0), e)
+    scan_cases = [c + (False,) for c in SCAN_CASES] + [
+        (1, 200, 2, 64, 64, True), (1, 70, 2, 5, 16, True),
+        (LM_BATCH, LM_PROMPT, rwkv_h, rwkv_n, rwkv_n, False)]
     for dtype, tol in ((f32, 1e-4), (bf16, 5e-2)):
-        for b, t, h, n, m in SCAN_CASES + [
-                (LM_BATCH, LM_PROMPT, rwkv_h, rwkv_n, rwkv_n)]:
-            args = scan_inputs(b, t, h, n, m, dtype)
+        for b, t, h, n, m, small in scan_cases:
+            args = scan_inputs(b, t, h, n, m, dtype, small)
             (y, s_t), (y_ref, s_ref) = (scan_mod.linear_scan_cuda(*args),
                                         linear_scan_ref(*args))
-            what = f"linear_scan {dtype} {(b, t, h, n, m)}"
+            what = f"linear_scan {dtype} {(b, t, h, n, m)}" + (
+                " small decays" if small else "")
             e = max(compare(y, y_ref, tol, tol, what),
                     compare(s_t, s_ref, tol, tol, what + " state"))
             if dtype == bf16:
@@ -599,23 +622,28 @@ def main() -> int:
                 compare(y.float(), y32, BF16_ROUND_RTOL, BF16_ROUND_ATOL,
                         what + " vs fp32")
                 compare(s_t, s32, 1e-4, 1e-4, what + " state vs fp32")
-                if t == LM_PROMPT:
+                if b == LM_BATCH and t == LM_PROMPT:
                     main_rel_l2["linear_scan"] = rel_l2_t(y, y32)
             key = str(dtype).replace("torch.", "")
             lm_err["linear_scan"][key] = max(
                 lm_err["linear_scan"].get(key, 0.0), e)
-    # two half scans, the second from the first's final state, equal one
-    decay, k, v, r, s0 = scan_inputs(1, 64, 2, 4, 8, f32)
-    y_full, s_full = scan_mod.linear_scan_cuda(decay, k, v, r, s0)
-    halves = [[a[:, i:i + 32].contiguous() for a in (decay, k, v, r)]
-              for i in (0, 32)]
-    y1, s1 = scan_mod.linear_scan_cuda(*halves[0], s0)
-    y2, s2 = scan_mod.linear_scan_cuda(*halves[1], s1)
-    carry_err = max(compare(torch.cat([y1, y2], 1), y_full, 1e-5, 1e-5,
-                            "scan state carry"),
-                    compare(s2, s_full, 1e-5, 1e-5, "scan state carry"))
+    # two half scans, the second from the first's final state, equal one;
+    # N 4 split at a chunk's edge, N 64 and 128 inside a chunk
+    carry_err = 0.0
+    for n, m, t, cut in ((4, 8, 64, 32), (64, 64, 70, 33), (128, 80, 70, 33)):
+        decay, k, v, r, s0 = scan_inputs(1, t, 2, n, m, f32)
+        y_full, s_full = scan_mod.linear_scan_cuda(decay, k, v, r, s0)
+        halves = [[a[:, sl].contiguous() for a in (decay, k, v, r)]
+                  for sl in (slice(0, cut), slice(cut, t))]
+        y1, s1 = scan_mod.linear_scan_cuda(*halves[0], s0)
+        y2, s2 = scan_mod.linear_scan_cuda(*halves[1], s1)
+        what = f"scan state carry N {n}"
+        carry_err = max(carry_err,
+                        compare(torch.cat([y1, y2], 1), y_full, 1e-5, 1e-5,
+                                what),
+                        compare(s2, s_full, 1e-5, 1e-5, what))
     torch.cuda.synchronize()
-    emit("lm_kernels", flash_cases=len(cases), scan_cases=len(SCAN_CASES) + 1,
+    emit("lm_kernels", flash_cases=len(cases), scan_cases=len(scan_cases),
          tolerance={"flash_attention": {"float32": 2e-5, "bfloat16": 3e-2},
                     "linear_scan": {"float32": 1e-4, "bfloat16": 5e-2},
                     "bfloat16_vs_fp32": {"rtol": BF16_ROUND_RTOL,

@@ -74,10 +74,13 @@ class Backend(abc.ABC):
 
     Required: :meth:`predict_batch` maps ``(N, *in_shape)`` float32 to
     ``(N, *out_shape)`` float32 numpy arrays.  Optional overrides:
-    :meth:`close`, :meth:`worker`.
+    :meth:`describe`, :meth:`close`, :meth:`worker`.  A backend is a
+    context manager that closes itself on exit.
     """
 
     name = "?"
+    precision = "fp32"
+    workload = "cnn"
 
     def __init__(self, graph: CNNGraph):
         self.graph = graph
@@ -87,8 +90,24 @@ class Backend(abc.ABC):
     def predict_batch(self, x: np.ndarray) -> np.ndarray:
         """``(N, *in_shape)`` float32 -> ``(N, *out_shape)`` float32."""
 
+    def describe(self) -> dict:
+        """Stable facts about this backend (extended by subclasses)."""
+        return {
+            "name": self.name,
+            "precision": self.precision,
+            "input_shape": tuple(self.graph.input_shape),
+            "output_shape": tuple(self.out_shape),
+        }
+
     def close(self) -> None:
         """Release backend resources. Idempotent; default no-op."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     def worker(self) -> "Backend":
         """A handle a server worker thread may use concurrently with
@@ -117,6 +136,10 @@ class _ModuleBackend(Backend):
     def _on_stream(self):
         return (torch.cuda.stream(self.stream) if self.stream is not None
                 else contextlib.nullcontext())
+
+    def describe(self) -> dict:
+        return {**super().describe(), "device": str(self.device),
+                "kernels": self.kernels}
 
     def worker(self) -> "_ModuleBackend":
         """A handle over the same weights with its own CUDA stream."""

@@ -67,6 +67,9 @@ class InferenceSession:
         """The live :class:`Backend` this session serves through."""
         return self._backend
 
+    def close(self) -> None:
+        self._backend.close()
+
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Single image ``(*in_shape)`` -> ``(*out_shape)``, or batch
         ``(N, *in_shape)`` -> ``(N, *out_shape)``."""

@@ -207,6 +207,7 @@ int dispatch_flash(const void* q, const void* k, const void* v, void* o,
     case 16: return launch_flash<16>(q, k, v, o, s, stream);
     case 32: return launch_flash<32>(q, k, v, o, s, stream);
     case 64: return launch_flash<64>(q, k, v, o, s, stream);
+    case 80: return launch_flash<80>(q, k, v, o, s, stream);
     case 120: return launch_flash<120>(q, k, v, o, s, stream);
     case 128: return launch_flash<128>(q, k, v, o, s, stream);
     case 256: return launch_flash<256>(q, k, v, o, s, stream);

@@ -46,8 +46,8 @@
 //   the copies one step ahead, so the next k and v are in flight while
 //   the block computes.  The tensor maps are 4-D (d, rows, heads, batch)
 //   views with the tensors' own strides, encoded on the host at every
-//   call; rows past T or S and the columns that pad d = 120 to the wgmma
-//   depth arrive as zeros from TMA's bounds check.  Tiles stay bf16 in
+//   call; rows past T or S and the columns that pad d = 80 or 120 to 128
+//   arrive as zeros from TMA's bounds check.  Tiles stay bf16 in
 //   shared memory in the swizzled layout TMA writes and wgmma reads
 //   without bank conflicts.
 // - Within a warpgroup, s of the next kv tile and p.v of this one are
@@ -91,15 +91,19 @@ constexpr int kStages = 2;  // of the k and v ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNoMax = -1e30f;  // the running max before any visible key
 
-// Shared-memory tiles.  d is padded to the wgmma depth of 16 (DK); a tile
+// Shared-memory tiles.  d is padded (DK) to a power of two up to 64 (16,
+// 32 or 64: one swizzle atom of 32, 64 or 128 bytes) and above 64 to a
+// multiple of 64 (whole 128-byte atoms: D 80 and 120 take 128); a tile
 // of R rows is stored as TMA writes it with swizzling: [DK * 2 / kRow
 // atoms][R rows][kRow bytes], kRow = 128 bytes (64 d) or the whole row
 // when it is shorter, each row's 16-byte chunks permuted by the hardware
 // (swizzle mode kRow), the layout wgmma reads without bank conflicts.
+// The padding columns arrive as zeros from TMA's bounds check.
 template <int D>
 struct Tiles {
   static_assert(D % 8 == 0, "d in 16-byte chunks");
-  static constexpr int kDepth = (D + 15) / 16 * 16;
+  static constexpr int kDepth = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64
+                                : (D + 63) / 64 * 64;
   static constexpr int kRow = kDepth * 2 < 128 ? kDepth * 2 : 128;
   static constexpr int kAtoms = kDepth * 2 / kRow;
   static constexpr uint32_t kQBytes = kBlockQ * kDepth * 2;
@@ -588,6 +592,7 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int d,
     case 16: return launch_tc<16>(q, k, v, o, s, stream);
     case 32: return launch_tc<32>(q, k, v, o, s, stream);
     case 64: return launch_tc<64>(q, k, v, o, s, stream);
+    case 80: return launch_tc<80>(q, k, v, o, s, stream);
     case 120: return launch_tc<120>(q, k, v, o, s, stream);
     case 128: return launch_tc<128>(q, k, v, o, s, stream);
     case 256: return launch_tc<256>(q, k, v, o, s, stream);

@@ -36,7 +36,7 @@ import torch
 from .build import check_launch, current_stream, kernel_library
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 120, 128, 256)  # the archs' and the tests' dims
+HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)  # the archs' and the tests' dims
 
 launches = 0
 _count_lock = threading.Lock()

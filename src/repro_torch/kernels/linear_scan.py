@@ -6,7 +6,9 @@ Replaces the JAX package's Pallas TPU kernel ``_scan_kernel`` /
 ``S_t = diag(decay_t) S_{t-1} + k_t^T v_t`` and ``y_t = r_t S_t`` with
 the state in fp32, returning ``y`` in ``v``'s type and the final state
 in fp32.  The TPU kernel's ``chunk`` (its T tile) has no counterpart:
-one CUDA block walks the whole sequence.
+one CUDA block walks the whole sequence, four lanes to a state column,
+with each chunk of 32 steps copied into shared memory while the one
+before runs.  Any N up to :data:`MAX_STATE_DIM` and any M.
 
 ``launches`` counts the kernel launches of this process; it is a plain
 integer, read and reset by ``chip_smoke.py``.
@@ -21,7 +23,7 @@ import torch
 from .build import check_launch, check_operand, current_stream, kernel_library
 
 DTYPES = (torch.float32, torch.bfloat16)
-STATE_DIMS = (4, 8, 16, 32, 64)  # N, the state rows a thread keeps
+MAX_STATE_DIM = 128  # N: 4 lanes of a state column keep 32 rows each
 
 launches = 0
 _count_lock = threading.Lock()
@@ -31,8 +33,8 @@ def linear_scan_cuda(decay: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      r: torch.Tensor, s0: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """decay/k/r (B,T,H,N), v (B,T,H,M), all fp32 or all bf16; s0
-    (B,H,N,M) fp32; all contiguous on one CUDA device, N in
-    :data:`STATE_DIMS`.  Returns ``(y (B,T,H,M) in v's type,
+    (B,H,N,M) fp32; all contiguous on one CUDA device, 1 <= N <=
+    :data:`MAX_STATE_DIM`.  Returns ``(y (B,T,H,M) in v's type,
     final state (B,H,N,M) fp32)``; launches on the current stream."""
     global launches
     check_operand(v, "v", 4, DTYPES)
@@ -47,8 +49,8 @@ def linear_scan_cuda(decay: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"shapes decay {tuple(decay.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}, r {tuple(r.shape)}, s0 {tuple(s0.shape)} "
             f"do not match")
-    if n not in STATE_DIMS:
-        raise ValueError(f"state dim N {n} not in {STATE_DIMS}")
+    if not 1 <= n <= MAX_STATE_DIM:
+        raise ValueError(f"state dim N {n} not in 1..{MAX_STATE_DIM}")
     y = torch.empty_like(v)
     s_final = torch.empty_like(s0)
     if s0.numel() == 0:

@@ -18,6 +18,14 @@ between the two packages:
   (:mod:`repro_torch.kernels.linear_scan`), or ``"chunked"``, the plain
   step-by-step loop.
 
+In bf16, ``"reference"`` is not quite the JAX package's function.  The
+JAX ``attention_ref`` forms q·kᵀ as a bf16 einsum, so its logits are
+rounded to bf16 before ``* scale``; the port's keeps them in fp32, since
+it is also the plain version the CUDA kernels are held to (their scores
+are fp32 sums of exact products).  The two policies agree within the
+bf16 tolerance of 3e-2 (``tests/test_torch_lm_model.py`` pins the gap
+on a bf16 ``.smoke()`` config); in fp32 they are the same function.
+
 The port's default is the kernels: ``("flash_pallas", "linear_scan")``.
 Decode (T == 1) always runs the plain
 :func:`repro_torch.models.layers.decode_attention` and the plain RWKV

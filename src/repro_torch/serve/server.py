@@ -121,6 +121,9 @@ class InferenceResult:
         self.timestamps: Dict[str, float] = {"submit": time.perf_counter()}
         self.batch_size: Optional[int] = None
 
+    def done(self) -> bool:
+        return self._done
+
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self._done:
             with self._cond:
@@ -154,8 +157,12 @@ class InferenceServer:
     """
 
     def __init__(self, session: Union[InferenceSession, Backend], *,
-                 config: Optional[ServerConfig] = None):
-        config = ServerConfig() if config is None else config
+                 config: Optional[ServerConfig] = None, **kw):
+        if config is None:
+            config = ServerConfig(**kw)
+        elif kw:
+            raise TypeError(
+                "InferenceServer: pass either config= or kwargs, not both")
         self.config = config
         self._backend = (session.backend
                          if isinstance(session, InferenceSession)
@@ -337,7 +344,7 @@ class InferenceServer:
         t_exec = time.perf_counter()
         try:
             out = self._execute(handle, live)
-        except Exception as e:  # surface to every waiter
+        except BaseException as e:  # surface to every waiter
             for req in live:
                 self.stats_.on_failure()
                 self._finish(req, None, e)
@@ -363,7 +370,7 @@ class LMTokenServer(InferenceServer):
 
     >>> sess = LMSession(config=SessionConfig(backend="cuda-lm",
     ...                                       lm=LMConfig(...)))
-    >>> with LMTokenServer(sess, config=ServerConfig(workers=1)) as srv:
+    >>> with LMTokenServer(sess, workers=1) as srv:
     ...     toks = srv.generate(prompt_ids, max_new=16)
 
     A request is a 1-D int prompt plus ``max_new``; the result is the
@@ -374,14 +381,16 @@ class LMTokenServer(InferenceServer):
     the same dequeue round.
     """
 
-    def __init__(self, session, *, config: Optional[ServerConfig] = None):
-        backend = (session.backend if isinstance(session, LMSession)
+    def __init__(self, session, *, config: Optional[ServerConfig] = None,
+                 **kw):
+        self.lm_session = session if isinstance(session, LMSession) else None
+        backend = (session.backend if self.lm_session is not None
                    else session)
         if not isinstance(backend, LMBackend):
             raise TypeError(
                 f"LMTokenServer needs an LMSession or LMBackend, got "
                 f"{type(session).__name__}")
-        super().__init__(backend, config=config)
+        super().__init__(backend, config=config, **kw)
 
     # -- client side ---------------------------------------------------------
 

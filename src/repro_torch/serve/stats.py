@@ -76,6 +76,10 @@ class ServerStats:
             self.batches += 1
             self._batch_sizes.append(size)
 
+    def on_complete(self, *, total_us: float, queue_wait_us: float,
+                    exec_us: float, now: Optional[float] = None) -> None:
+        self.on_complete_batch([total_us], [queue_wait_us], exec_us, now=now)
+
     def on_complete_batch(self, totals_us, queue_waits_us, exec_us: float,
                           now: Optional[float] = None) -> None:
         """Record a whole batch under one lock acquisition — the server

@@ -11,8 +11,9 @@ the JAX package, so it runs on a machine with a card and PyTorch alone:
 Tolerances: conv fp32 1e-5 (fp32 sums in another order), bf16 3e-2 (the
 output rounds to bf16), pool exact; whole nets rtol 1e-4 / atol 1e-5,
 the tolerance of ``tests/test_pallas_cnn_path.py``; flash attention
-fp32 2e-5 and bf16 3e-2, linear scan fp32 1e-4 and bf16 5e-2 and its
-two-halves state carry 1e-5, the tolerances of ``tests/test_kernels.py``;
+fp32 2e-5 and bf16 3e-2, linear scan fp32 1e-4 and bf16 5e-2 (also
+with decays down to 1e-6) and its two-halves state carry 1e-5, the
+tolerances of ``tests/test_kernels.py``;
 the bf16 flash kernel also within one bf16 rounding (2**-8 relative,
 1e-5 absolute) of the fp32 function of its inputs.  The CNN fixture switches TF32 off, since cuDNN's default keeps about
 three digits; ``test_torch_session_is_fp32_with_default_switches``
@@ -62,6 +63,11 @@ CUDA_FLASH_CASES = FLASH_CASES + [
     (2, 4, 4, 100, 128, False, 30),
     (1, 2, 1, 33, 16, True, 0),
     (1, 8, 4, 1100, 256, True, 1024),
+    # head dim 80 (hubert-xlarge, zamba2-2.7b): GQA 1 and 2, causal and
+    # windowed, ragged T
+    (1, 4, 4, 100, 80, True, None),
+    (1, 4, 2, 130, 80, True, 32),
+    (2, 4, 2, 70, 80, False, None),
 ]
 # the bf16 tensor-core kernel: every head dim, each under five masks and
 # layouts (b, hq, hkv, t, s, causal, window, (B,T,H,D) views): GQA groups
@@ -82,6 +88,14 @@ SCAN_CASES = [  # (b, t, h, n, m): tests/test_kernels.py
 ]
 # rwkv6-7b's heads (N = M = 64) and an M that is no multiple of 64
 CUDA_SCAN_CASES = SCAN_CASES + [(2, 70, 3, 64, 64), (1, 33, 2, 32, 80)]
+# N no power of two (5 takes the kernel's plain copies, 48 pads to 64
+# rows) and N 128; M 80 (no multiple of the 64-column tile) and M 10 (no
+# whole 16-byte chunks); T 1, 33 and 1537 (no multiple of the 32-step
+# chunk)
+CUDA_SCAN_CASES += [(1, 40, 2, 5, 16), (1, 40, 3, 48, 64),
+                    (1, 33, 2, 128, 64), (2, 33, 2, 64, 80),
+                    (1, 33, 2, 16, 10), (2, 1, 2, 64, 64),
+                    (1, 1537, 2, 64, 64)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NETS = {**PAPER_CNNS, **EXTRA_CNNS}
 
@@ -297,6 +311,51 @@ def test_linear_scan_kernel_carries_state_across_calls(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,h,n,m", [(1, 200, 2, 64, 64), (1, 70, 2, 5, 16),
+                                       (1, 70, 2, 128, 80)])
+def test_linear_scan_kernel_with_small_decays(cuda, b, t, h, n, m, dtype):
+    """Decays drawn log-uniform in [1e-6, 1], as RWKV6's exp(-exp(w))
+    spreads them: the state forgets within a step on some rows and keeps
+    everything on others (fp32 1e-4, bf16 5e-2)."""
+    td = DTYPES[dtype]
+    decay = np.exp(np.random.default_rng(18).uniform(
+        np.log(1e-6), 0.0, size=(b, t, h, n))).astype(np.float32)
+    _, *rest = scan_inputs(b, t, h, n, m)
+    *seq, s0 = (torch.from_numpy(a).to(cuda) for a in (decay, *rest))
+    seq = [a.to(td) for a in seq]
+    y, s_t = scan_mod.linear_scan_cuda(*seq, s0)
+    y_ref, s_ref = ref.linear_scan_ref(*seq, s0)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_ref.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(s_t.cpu().numpy(), s_ref.cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(48, 64), (64, 64), (128, 80)])
+def test_linear_scan_kernel_carries_state_at_any_state_dim(cuda, n, m):
+    """The two-halves state carry (1e-5) at N = 48, 64 and 128, split at
+    step 33 of 70, inside a 32-step chunk."""
+    b, t, h = 1, 70, 2
+    decay, k, v, r, s0 = (torch.from_numpy(a).to(cuda) for a in
+                          scan_inputs(b, t, h, n, m))
+    y_full, s_full = scan_mod.linear_scan_cuda(decay, k, v, r, s0)
+    half = [a[:, :33].contiguous() for a in (decay, k, v, r)]
+    rest = [a[:, 33:].contiguous() for a in (decay, k, v, r)]
+    y1, s1 = scan_mod.linear_scan_cuda(*half, s0)
+    y2, s2 = scan_mod.linear_scan_cuda(*rest, s1)
+    np.testing.assert_allclose(y_full.cpu().numpy(),
+                               torch.cat([y1, y2], 1).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s_full.cpu().numpy(), s2.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -311,9 +370,9 @@ def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     qb = torch.zeros(1, 2, 8, 33, device=cuda, dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
         flash_mod.flash_attention_cuda(qb, qb, qb)
-    x = torch.zeros(1, 4, 1, 128, device=cuda)
+    x = torch.zeros(1, 4, 1, 129, device=cuda)
     with pytest.raises(ValueError, match="state dim"):
-        scan_mod.linear_scan_cuda(x, x, x, x, torch.zeros(1, 1, 128, 128,
+        scan_mod.linear_scan_cuda(x, x, x, x, torch.zeros(1, 1, 129, 129,
                                                           device=cuda))
 
 

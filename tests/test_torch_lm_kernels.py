@@ -19,11 +19,12 @@ import torch
 
 from repro.engine import LMConfig as JaxLMConfig
 from repro.kernels import ops as jops
+from repro_torch.configs.lm_archs import ARCHS
 from repro_torch.engine import LMConfig
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import linear_scan as scan_mod
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, linear_scan_ref
 from repro_torch.models.kernel_policy import (DEFAULT_KERNELS, PLAIN_KERNELS,
                                               KernelPolicy)
 from test_torch_cuda import FLASH_CASES, SCAN_CASES, flash_inputs, scan_inputs
@@ -124,7 +125,10 @@ def test_bf16_kernel_keeps_p_to_one_output_rounding(split_p):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("b,t,h,n,m,chunk", [
-    case + (chunk,) for case, chunk in zip(SCAN_CASES, (32, 128, 32))])
+    case + (chunk,) for case, chunk in zip(SCAN_CASES, (32, 128, 32))] + [
+    # N no power of two (the CUDA kernel takes any N up to 128, the JAX
+    # kernel any N) and an M of 80
+    (1, 64, 2, 5, 16, 32), (1, 64, 2, 48, 80, 64)])
 def test_linear_scan_matches_pallas(b, t, h, n, m, chunk, dtype):
     decay, k, v, r, s0 = scan_inputs(b, t, h, n, m)
     jax_in = [_both(a, dtype) for a in (decay, k, v, r)]
@@ -141,6 +145,66 @@ def test_linear_scan_matches_pallas(b, t, h, n, m, chunk, dtype):
                                rtol=tol, atol=tol)
     np.testing.assert_allclose(s_t.numpy(), np.asarray(want_s),
                                rtol=tol, atol=tol)
+
+
+def _grouped_scan_arithmetic(decay, k, v, r, s0):
+    """The CUDA scan kernel's arithmetic (``csrc/linear_scan.cu``) in
+    plain torch, fp32: each state element updated by one fma,
+    ``fma(decay, s, k * v)``; the N rows of a state column split into
+    four blocks of R = ceil(N / 4) rows, each block's part of y summed
+    row by row with fmas, and the parts combined by the lanes' xor
+    shuffles, ``(p0 + p1) + (p2 + p3)``.  An fma is emulated in float64,
+    where the product of two fp32 values is exact."""
+    groups = 4
+
+    def fma(a, x, c):
+        return (a.double() * x.double() + c.double()).float()
+
+    d, kk, vv, rr = (a.float() for a in (decay, k, v, r))
+    b, t, h, n = kk.shape
+    rows = -(-n // groups)
+
+    def blocks(a):  # rows (dim 2) -> (groups, R), padded with zeros
+        a = torch.nn.functional.pad(a.movedim(2, -1), (0, rows * groups - n))
+        return a.reshape(a.shape[:-1] + (groups, rows)).movedim((-2, -1),
+                                                                (2, 3))
+
+    state = blocks(s0.float())                          # B,H,G,R,M
+    ys = []
+    for i in range(t):
+        di, ki, ri = (blocks(a[:, i])[..., None] for a in (d, kk, rr))
+        state = fma(di, state, ki * vv[:, i, :, None, None, :])
+        part = torch.zeros((b, h, groups, vv.shape[-1]))  # B,H,G,M
+        for j in range(rows):
+            part = fma(ri[:, :, :, j], state[:, :, :, j], part)
+        ys.append((part[:, :, 0] + part[:, :, 1])
+                  + (part[:, :, 2] + part[:, :, 3]))
+    return (torch.stack(ys, dim=1),
+            state.reshape(b, h, groups * rows, -1)[:, :, :n])
+
+
+def test_linear_scan_group_split_holds_fp32_tolerance():
+    """The summation order of the CUDA scan kernel's y (four lanes to a
+    state column, each summing 16 of N = 64 rows, then two shuffles) at
+    rwkv6-7b's N = M = 64 and the main path's T = 1536, on two heads:
+    within 1e-4 of the plain version, as the card's gate asks, and the
+    final state within 1e-5 (the same fmas, in no other order)."""
+    decay, k, v, r, s0 = (torch.from_numpy(a) for a in
+                          scan_inputs(1, 1536, 2, 64, 64))
+    y, s_t = _grouped_scan_arithmetic(decay, k, v, r, s0)
+    y_ref, s_ref = linear_scan_ref(decay, k, v, r, s0)
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(s_t.numpy(), s_ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_every_attention_head_dim_has_a_flash_kernel():
+    """The head dim of every arch with attention, zamba2-2.7b's shared
+    block included, is one the CUDA flash kernels are built for."""
+    dims = {a: cfg.head_dim for a, cfg in ARCHS.items() if cfg.n_heads}
+    assert dims["hubert-xlarge"] == dims["zamba2-2.7b"] == 80
+    assert set(dims.values()) <= set(flash_mod.HEAD_DIMS), dims
 
 
 def test_linear_scan_state_carry_matches_pallas():
