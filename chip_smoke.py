@@ -13,18 +13,21 @@ propagates and the script exits non-zero:
    defaults);
 2. build     — the hand-written CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` into ``build/repro_torch_kernels/``:
-   seconds, and ptxas's lines naming each kernel function with its
-   registers and spill bytes;
+   seconds, ptxas's lines naming each kernel function with its
+   registers and spill bytes, and the same per conv2d instantiation,
+   none of the robot's (fp32, 3x3) spilling;
 3. kernels   — the CNN kernels held against their plain PyTorch versions
    (``kernels/ref.py``) on the card: conv2d on every conv shape of the
-   four optimized nets at the main path's batches, the JAX suite's cases
-   and a c_out that is no multiple of the thread block (fp32 at 1e-5,
-   bf16 at 3e-2); maxpool2d on the JAX suite's cases and the robot's
+   four optimized nets at the main path's batches, the JAX suite's cases,
+   a c_out of 300 and the tiled kernel's edges (fp32 at 1e-5, bf16 at
+   3e-2 and within one rounding, 2**-8 relative, of the fp32 function of
+   the same inputs); maxpool2d on the JAX suite's cases and the robot's
    pools, exact;
-4. time      — per robot layer at batch 256: the kernel, its plain
-   version and one PyTorch library call (cuDNN with TF32 off for that
-   call only), CUDA events around a replayed CUDA graph, median of
-   repeats; bytes, fp32 operations and the bound;
+4. time      — per robot layer at batch 256: the kernel (with the tap
+   variant and tile ``conv_plan`` chose), its plain version and one
+   PyTorch library call (cuDNN with TF32 off for that call only), CUDA
+   events around a replayed CUDA graph, median of repeats; bytes, fp32
+   operations and the bound;
 5. main      — ``InferenceSession(backend="cuda")`` against
    ``backend="torch"`` on the card at rtol 1e-4 / atol 1e-5, with the
    TF32 switches at PyTorch's defaults until the ``"torch"`` backend sets
@@ -79,6 +82,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -141,6 +145,32 @@ FLASH_CASES = [  # (b, hq, hkv, t, d, causal, window): the JAX suite's
     # head dim 80 (hubert-xlarge, zamba2-2.7b): GQA 1 and 2, windowed
     (1, 4, 4, 100, 80, True, None), (1, 4, 2, 130, 80, True, 32),
     (2, 4, 2, 70, 80, False, None)]
+# the tiled conv kernel's edges (n, h, w, ci, co, kh, kw, stride, padding,
+# act): H and W no multiple of the row tile, batch 1, c_out one below and
+# one above the channel tiles (12 a thread, 16, 24 and 32 a block), strips
+# whose rows are no whole 16-byte chunks (CI 1 and 3 at odd W), rows wider
+# than one pass, filters above 48 KB of shared memory, and the
+# runtime-tap instantiation (7x7, 3x2, 3x3 at stride 2); as
+# tests/test_torch_cuda.py's EDGE_CONV_CASES
+CONV_EDGE_CASES = [
+    (2, 37, 53, 8, 12, 3, 3, 1, "same", "leaky_relu"),
+    (1, 31, 45, 16, 20, 3, 3, 1, "same", "relu"),
+    (2, 9, 11, 8, 11, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 13, 3, 3, 1, "same", "relu"),
+    (2, 9, 11, 8, 15, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 17, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 23, 3, 3, 1, "same", "leaky_relu"),
+    (2, 9, 11, 8, 25, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 31, 3, 3, 1, "same", "relu"),
+    (2, 9, 11, 8, 33, 3, 3, 1, "same", "relu"),
+    (2, 13, 17, 1, 8, 3, 3, 1, "same", "relu"),
+    (2, 13, 17, 3, 8, 3, 3, 1, "same", "leaky_relu"),
+    (1, 5, 700, 4, 8, 3, 3, 1, "same", "relu"),
+    (1, 6, 7, 64, 64, 3, 3, 1, "same", None),
+    (1, 20, 22, 4, 8, 7, 7, 1, "same", "relu"),
+    (2, 10, 9, 5, 6, 3, 2, 1, "valid", None),
+    (2, 15, 17, 6, 10, 3, 3, 2, "same", "leaky_relu"),
+]
 SCAN_CASES = [(1, 64, 2, 8, 16), (2, 128, 4, 16, 16), (1, 96, 1, 4, 8),
               (1, 33, 2, 32, 80),  # (b, t, h, n, m)
               # N no power of two and N 128, M 80 and 10, T 1 and 1537
@@ -248,6 +278,32 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def conv_instantiations(log):
+    """Per conv2d kernel instantiation in ptxas's log: its type, taps
+    ("runtime" where variable), output channels a thread holds,
+    registers and spill-store bytes."""
+    out, cur = [], None
+    for ln in log:
+        m = re.search(r"Compiling entry function '\S*conv2d_tiled_kernelI"
+                      r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)E", ln)
+        if "Compiling entry function" in ln:
+            cur = None
+        if m:
+            dtype, kh, kw, sh, sw, c = m.groups()
+            cur = dict(dtype="float32" if dtype == "f" else "bfloat16",
+                       taps=f"{kh}x{kw}/{sh}x{sw}" if kh != "0"
+                       else "runtime", c=int(c))
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            cur["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores",
+                                               ln).group(1))
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    return out
+
+
 def conv_layers(graph):
     """(in_shape, layer) of every Conv2D of an optimized graph."""
     from repro_torch.core.graph import Conv2D
@@ -322,8 +378,15 @@ def main() -> int:
     so = build.build()
     build.kernel_library()
     log = so.with_suffix(".log").read_text().splitlines()
+    conv_inst = conv_instantiations(log)
+    robot_inst = [i for i in conv_inst
+                  if i["dtype"] == "float32" and i["taps"] == "3x3/1x1"]
+    if not robot_inst or any(i["spill_bytes"] for i in robot_inst):
+        raise AssertionError(f"conv2d's 3x3 fp32 instantiations (the "
+                             f"robot's) spill or are missing: {robot_inst}")
     emit("build", seconds=time.perf_counter() - t0,
          library=str(so.relative_to(ROOT)),
+         conv2d_instantiations=conv_inst,
          ptxas=[ln.strip() for ln in log
                 if "Function properties for" in ln or "registers" in ln
                 or "spill" in ln])
@@ -339,7 +402,7 @@ def main() -> int:
         (1, 12, 10, 2, 6, 1, 1, 1, "valid", None),
         (1, 60, 80, 3, 8, 3, 3, 1, "same", "leaky_relu"),
         (3, 7, 5, 5, 300, 3, 3, 1, "same", "relu"),  # c_out % 256 != 0
-    ]
+    ] + CONV_EDGE_CASES
     pool_cases = [((1, 8, 8, 8), (2, 2), None),
                   ((2, 9, 9, 4), (3, 3), (2, 2)),
                   ((1, 16, 8, 12), (2, 2), (2, 2))]
@@ -358,11 +421,15 @@ def main() -> int:
             wt = rand((kh, kw, ci, co), dtype, 0.2)
             b = rand((co,))
             kw_args = dict(strides=(st, st), padding=pad, act=act)
-            e = compare(conv_mod.conv2d_cuda(x, wt, b, **kw_args),
-                        conv2d_ref(x, wt, b, **kw_args), tol, tol,
-                        f"conv2d {dtype} {(n, h, w, ci, co, kh, kw, st)}")
+            what = f"conv2d {dtype} {(n, h, w, ci, co, kh, kw, st)}"
+            y = conv_mod.conv2d_cuda(x, wt, b, **kw_args)
+            e = compare(y, conv2d_ref(x, wt, b, **kw_args), tol, tol, what)
             if dtype == torch.float32:
                 err["conv2d"] = max(err["conv2d"], e)
+            else:
+                compare(y.float(), conv2d_ref(x.float(), wt.float(), b,
+                                              **kw_args),
+                        BF16_ROUND_RTOL, BF16_ROUND_ATOL, what + " vs fp32")
         for shape, size, stride in pool_cases:
             x = rand(shape, dtype)
             e = compare(pool_mod.maxpool2d_cuda(x, size=size, strides=stride),
@@ -372,7 +439,10 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("kernels", conv2d_cases=len(conv_cases), maxpool2d_cases=len(
         pool_cases), dtypes=["float32", "bfloat16"],
-         tolerance={"conv2d": {"float32": 1e-5, "bfloat16": 3e-2},
+         tolerance={"conv2d": {"float32": 1e-5, "bfloat16": 3e-2,
+                               "bfloat16_vs_fp32": {
+                                   "rtol": BF16_ROUND_RTOL,
+                                   "atol": BF16_ROUND_ATOL}},
                     "maxpool2d": 0.0},
          max_abs_err_fp32=err)
 
@@ -403,8 +473,15 @@ def main() -> int:
         err["conv2d"] = max(err["conv2d"], e)
         taps = int(pool_window_counts((h, w, ci), (l.kh, l.kw), l.strides,
                                       (pt, pb, pl, pr)).sum())
+        plan = conv_mod.conv_plan(BATCH, h, w, ci, l.c_out, l.kh, l.kw,
+                                  tuple(l.strides), l.padding)
         rows["conv2d"].append(dict(
             layer=l.name, x=list(x.shape), w=list(wt.shape),
+            variant="x".join(map(str, conv_mod.TAP_VARIANTS[plan.variant]))
+            if plan.variant else "runtime taps",
+            tile=dict(c=plan.c, p=plan.p, cot=plan.cot, lanes=plan.lanes,
+                      threads=plan.threads, th=plan.th, passes=plan.passes,
+                      grid=list(plan.grid), smem_bytes=plan.smem_bytes),
             ms=graph_ms(torch, lambda: conv_mod.conv2d_cuda(
                 x, wt, b, **kw_args)),
             plain_ms=graph_ms(torch, lambda: conv2d_ref(x, wt, b, **kw_args)),

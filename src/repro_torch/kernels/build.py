@@ -38,8 +38,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C entry -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    "conv2d_nhwc_f32": [_P] * 4 + [_I] * 14 + [_F, _P],
-    "conv2d_nhwc_bf16": [_P] * 4 + [_I] * 14 + [_F, _P],
+    "conv2d_nhwc_f32": [_P] * 6,  # x, w, b, y, &ConvArgs, stream
+    "conv2d_nhwc_bf16": [_P] * 6,
     "maxpool2d_nhwc_f32": [_P] * 2 + [_I] * 10 + [_P],
     "maxpool2d_nhwc_bf16": [_P] * 2 + [_I] * 10 + [_P],
     "flash_attention_f32": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3

@@ -9,7 +9,8 @@ the JAX package, so it runs on a machine with a card and PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: conv fp32 1e-5 (fp32 sums in another order), bf16 3e-2 (the
-output rounds to bf16), pool exact; whole nets rtol 1e-4 / atol 1e-5,
+output rounds to bf16) and within one bf16 rounding of the fp32 function
+of its inputs, pool exact; whole nets rtol 1e-4 / atol 1e-5,
 the tolerance of ``tests/test_pallas_cnn_path.py``; flash attention
 fp32 2e-5 and bf16 3e-2, linear scan fp32 1e-4 and bf16 5e-2 (also
 with decays down to 1e-6) and its two-halves state carry 1e-5, the
@@ -40,8 +41,55 @@ CONV_CASES = [  # the cases of tests/test_kernels.py
     (1, 12, 10, 2, 6, 1, 1, 1, "valid", None),
     (1, 60, 80, 3, 8, 3, 3, 1, "same", "leaky_relu"),  # robot detector L1
 ]
-# c_out no multiple of the CUDA kernel's 256-thread block
+# c_out no multiple of the 256-thread block of the kernel's first design
 CUDA_CONV_CASES = CONV_CASES + [(3, 7, 5, 5, 300, 3, 3, 1, "same", "relu")]
+# every Conv2D of the four optimized nets at the main path's batches
+# (robot 64, the others 8; a softmax layer's conv has no activation)
+NET_CONV_CASES = [
+    (64, 60, 80, 3, 8, 3, 3, 1, "same", "leaky_relu"),       # robot
+    (64, 30, 40, 8, 12, 3, 3, 1, "same", "leaky_relu"),
+    (64, 30, 40, 12, 8, 3, 3, 1, "same", "leaky_relu"),
+    (64, 15, 20, 8, 16, 3, 3, 1, "same", "leaky_relu"),
+    (64, 15, 20, 16, 20, 3, 3, 1, "same", "leaky_relu"),
+    (8, 36, 18, 1, 12, 3, 3, 1, "same", "relu"),              # pedestrian
+    (8, 18, 9, 12, 32, 3, 3, 1, "same", "leaky_relu"),
+    (8, 9, 4, 32, 64, 3, 3, 1, "same", "leaky_relu"),
+    (8, 4, 2, 64, 2, 4, 2, 1, "valid", None),
+    (8, 16, 16, 1, 8, 5, 5, 2, "same", "relu"),               # ball
+    (8, 4, 4, 8, 12, 3, 3, 1, "valid", "relu"),
+    (8, 2, 2, 12, 2, 2, 2, 1, "valid", None),
+    (8, 16, 16, 3, 8, 3, 3, 1, "same", "relu"),               # residual
+    (8, 16, 16, 8, 8, 1, 1, 1, "valid", None),
+    (8, 16, 16, 8, 4, 1, 1, 1, "valid", None),
+    (8, 16, 16, 8, 4, 3, 3, 1, "same", None),
+    (8, 1, 1, 8, 4, 1, 1, 1, "valid", None),
+]
+# the tiled kernel's edges: H and W no multiple of the row tile, batch 1,
+# c_out one below and one above the channel tiles (12 a thread, 16, 24
+# and 32 a block), strips
+# whose rows are no whole 16-byte chunks (CI 1 and 3 at odd W), rows wider
+# than one pass, filters above 48 KB of shared memory, and shapes only the
+# runtime-tap instantiation takes (7x7, 3x2, 3x3 at stride 2)
+EDGE_CONV_CASES = [
+    (2, 37, 53, 8, 12, 3, 3, 1, "same", "leaky_relu"),
+    (1, 31, 45, 16, 20, 3, 3, 1, "same", "relu"),
+    (2, 9, 11, 8, 11, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 13, 3, 3, 1, "same", "relu"),
+    (2, 9, 11, 8, 15, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 17, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 23, 3, 3, 1, "same", "leaky_relu"),
+    (2, 9, 11, 8, 25, 3, 3, 1, "same", None),
+    (2, 9, 11, 8, 31, 3, 3, 1, "same", "relu"),
+    (2, 9, 11, 8, 33, 3, 3, 1, "same", "relu"),
+    (2, 13, 17, 1, 8, 3, 3, 1, "same", "relu"),
+    (2, 13, 17, 3, 8, 3, 3, 1, "same", "leaky_relu"),
+    (1, 5, 700, 4, 8, 3, 3, 1, "same", "relu"),
+    (1, 6, 7, 64, 64, 3, 3, 1, "same", None),
+    (1, 20, 22, 4, 8, 7, 7, 1, "same", "relu"),
+    (2, 10, 9, 5, 6, 3, 2, 1, "valid", None),
+    (2, 15, 17, 6, 10, 3, 3, 2, "same", "leaky_relu"),
+]
+CUDA_CONV_CASES += NET_CONV_CASES + EDGE_CONV_CASES
 POOL_CASES = [
     ((1, 8, 8, 8), (2, 2), None),
     ((2, 9, 9, 4), (3, 3), (2, 2)),
@@ -151,6 +199,28 @@ def test_conv2d_kernel_matches_plain(cuda, n, h, w, ci, co, kh, kw, stride,
     tol = 1e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,padding,act",
+                         CUDA_CONV_CASES)
+def test_conv2d_bf16_kernel_within_one_rounding(cuda, n, h, w, ci, co, kh,
+                                                kw, stride, padding, act):
+    """The bf16 kernel sums in fp32 and rounds once: every output within
+    one bf16 rounding (2**-8 relative, 1e-5 absolute) of the plain version
+    on the upcast inputs."""
+    x = torch.from_numpy(_rnd(0, (n, h, w, ci))).to(cuda, torch.bfloat16)
+    wt = torch.from_numpy(_rnd(1, (kh, kw, ci, co), 0.2)).to(cuda,
+                                                             torch.bfloat16)
+    b = torch.from_numpy(_rnd(2, (co,))).to(cuda)
+    kw_args = dict(strides=(stride, stride), padding=padding, act=act)
+    got = conv_mod.conv2d_cuda(x, wt, b, **kw_args)
+    want32 = ref.conv2d_ref(x.float(), wt.float(), b, **kw_args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want32.cpu().numpy(), rtol=2.0 ** -8,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda
