@@ -19,15 +19,23 @@ propagates and the script exits non-zero:
 3. kernels   — the CNN kernels held against their plain PyTorch versions
    (``kernels/ref.py``) on the card: conv2d on every conv shape of the
    four optimized nets at the main path's batches, the JAX suite's cases,
-   a c_out of 300 and the tiled kernel's edges (fp32 at 1e-5, bf16 at
+   a c_out of 300, the tiled kernel's edges (fp32 at 1e-5, bf16 at
    3e-2 and within one rounding, 2**-8 relative, of the fp32 function of
-   the same inputs); maxpool2d on the JAX suite's cases and the robot's
-   pools, exact;
+   the same inputs) and the wide and deep shapes that take column tiles
+   and filter chunks (fp32 at ``conv_tol``: rtol 1e-5 and an atol that
+   grows as the K products a sum takes); maxpool2d on the JAX suite's cases, the
+   nets' pools, the vector-width edges, a tensor off 16-byte alignment
+   and NaNs inside a vector, exact (NaN where the plain version has
+   NaN);
 4. time      — per robot layer at batch 256: the kernel (with the tap
-   variant and tile ``conv_plan`` chose), its plain version and one
-   PyTorch library call (cuDNN with TF32 off for that call only), CUDA
-   events around a replayed CUDA graph, median of repeats; bytes, fp32
-   operations and the bound;
+   variant and tile ``conv_plan`` chose, or the plan ``pool_plan``
+   chose), its plain version and one PyTorch library call (cuDNN with
+   TF32 off for that call only), CUDA events around a replayed CUDA
+   graph, median of repeats; bytes, fp32 operations and the bound; each
+   pool also cold (``cold_ms``, ``plain_cold_ms``, ``library_cold_ms``):
+   the graph's 20 calls cycle through copies of x that together exceed
+   100 MB, so that each call reads from device memory, not from the
+   50 MB L2;
 5. main      — ``InferenceSession(backend="cuda")`` against
    ``backend="torch"`` on the card at rtol 1e-4 / atol 1e-5, with the
    TF32 switches at PyTorch's defaults until the ``"torch"`` backend sets
@@ -73,7 +81,8 @@ propagates and the script exits non-zero:
    (LM: the kernel policy's run in ``lm_main``, the server's in
    ``lm_serve``), each counted from 0 and read as it ends, max error, and
    the kernel's, plain version's, bound's and library's ms per robot
-   forward at batch 256 or per LM prefill;
+   forward at batch 256 (maxpool2d's from the cold readings) or per LM
+   prefill;
 13. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -145,32 +154,9 @@ FLASH_CASES = [  # (b, hq, hkv, t, d, causal, window): the JAX suite's
     # head dim 80 (hubert-xlarge, zamba2-2.7b): GQA 1 and 2, windowed
     (1, 4, 4, 100, 80, True, None), (1, 4, 2, 130, 80, True, 32),
     (2, 4, 2, 70, 80, False, None)]
-# the tiled conv kernel's edges (n, h, w, ci, co, kh, kw, stride, padding,
-# act): H and W no multiple of the row tile, batch 1, c_out one below and
-# one above the channel tiles (12 a thread, 16, 24 and 32 a block), strips
-# whose rows are no whole 16-byte chunks (CI 1 and 3 at odd W), rows wider
-# than one pass, filters above 48 KB of shared memory, and the
-# runtime-tap instantiation (7x7, 3x2, 3x3 at stride 2); as
-# tests/test_torch_cuda.py's EDGE_CONV_CASES
-CONV_EDGE_CASES = [
-    (2, 37, 53, 8, 12, 3, 3, 1, "same", "leaky_relu"),
-    (1, 31, 45, 16, 20, 3, 3, 1, "same", "relu"),
-    (2, 9, 11, 8, 11, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 13, 3, 3, 1, "same", "relu"),
-    (2, 9, 11, 8, 15, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 17, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 23, 3, 3, 1, "same", "leaky_relu"),
-    (2, 9, 11, 8, 25, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 31, 3, 3, 1, "same", "relu"),
-    (2, 9, 11, 8, 33, 3, 3, 1, "same", "relu"),
-    (2, 13, 17, 1, 8, 3, 3, 1, "same", "relu"),
-    (2, 13, 17, 3, 8, 3, 3, 1, "same", "leaky_relu"),
-    (1, 5, 700, 4, 8, 3, 3, 1, "same", "relu"),
-    (1, 6, 7, 64, 64, 3, 3, 1, "same", None),
-    (1, 20, 22, 4, 8, 7, 7, 1, "same", "relu"),
-    (2, 10, 9, 5, 6, 3, 2, 1, "valid", None),
-    (2, 15, 17, 6, 10, 3, 3, 2, "same", "leaky_relu"),
-]
+# the pool's cold readings cycle through copies of x of at least this
+# many bytes in all: twice the H100's 50 MB L2
+COLD_BYTES = 100 * 2 ** 20
 SCAN_CASES = [(1, 64, 2, 8, 16), (2, 128, 4, 16, 16), (1, 96, 1, 4, 8),
               (1, 33, 2, 32, 80),  # (b, t, h, n, m)
               # N no power of two and N 128, M 80 and 10, T 1 and 1537
@@ -234,6 +220,17 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     return events_ms(torch, graph.replay, reps)
 
 
+def cold_graph_ms(torch, fn, xs) -> float:
+    """``graph_ms`` of ``fn(x)`` with its 20 calls cycling through the
+    copies ``xs``, so that each call reads an x the L2 no longer holds."""
+    calls = [0]
+
+    def step():
+        calls[0] += 1
+        return fn(xs[calls[0] % len(xs)])
+    return graph_ms(torch, step)
+
+
 def device_busy(torch, fn, top: int = 8):
     """Run ``fn()`` under the profiler; returns (busy_ms, wall_ms, by
     kernel): the time in which the card ran at least one kernel or copy
@@ -284,16 +281,18 @@ def conv_instantiations(log):
     registers and spill-store bytes."""
     out, cur = [], None
     for ln in log:
-        m = re.search(r"Compiling entry function '\S*conv2d_tiled_kernelI"
+        m = re.search(r"Compiling entry function '\S*conv2d_(?:tiled_kernelI"
                       r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d+)E", ln)
+                      r"ELi(\d+)E|general_kernelI(f|13__nv_bfloat16)Li(\d+)E)",
+                      ln)
         if "Compiling entry function" in ln:
             cur = None
         if m:
-            dtype, kh, kw, sh, sw, c = m.groups()
-            cur = dict(dtype="float32" if dtype == "f" else "bfloat16",
-                       taps=f"{kh}x{kw}/{sh}x{sw}" if kh != "0"
-                       else "runtime", c=int(c))
+            dtype, kh, kw, sh, sw, c, g_dtype, g_c = m.groups()
+            cur = dict(dtype="float32" if (dtype or g_dtype) == "f"
+                       else "bfloat16",
+                       taps=f"{kh}x{kw}/{sh}x{sw}" if kh else "runtime",
+                       c=int(c or g_c))
             out.append(cur)
         elif cur is not None and "spill stores" in ln:
             cur["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores",
@@ -339,6 +338,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import linear_scan as scan_mod
     from repro_torch.kernels import maxpool2d as pool_mod
+    from repro_torch.kernels.cases import (BIG_CONV_CASES, EDGE_CONV_CASES,
+                                           EDGE_POOL_CASES, conv_tol)
     from repro_torch.kernels.ref import conv2d_ref, maxpool2d_ref
     from repro_torch.serve import InferenceServer, ServerConfig
 
@@ -402,10 +403,10 @@ def main() -> int:
         (1, 12, 10, 2, 6, 1, 1, 1, "valid", None),
         (1, 60, 80, 3, 8, 3, 3, 1, "same", "leaky_relu"),
         (3, 7, 5, 5, 300, 3, 3, 1, "same", "relu"),  # c_out % 256 != 0
-    ] + CONV_EDGE_CASES
+    ] + EDGE_CONV_CASES + BIG_CONV_CASES
     pool_cases = [((1, 8, 8, 8), (2, 2), None),
                   ((2, 9, 9, 4), (3, 3), (2, 2)),
-                  ((1, 16, 8, 12), (2, 2), (2, 2))]
+                  ((1, 16, 8, 12), (2, 2), (2, 2))] + EDGE_POOL_CASES
     for name, g in opt.items():
         n = main_batch[name]
         for (h, w, ci), l in conv_layers(g):
@@ -416,34 +417,66 @@ def main() -> int:
             pool_cases.append(((n, h, w, c), l.size, l.strides))
     err = {"conv2d": 0.0, "maxpool2d": 0.0}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
-        for n, h, w, ci, co, kh, kw, st, pad, act in conv_cases:
+        for case in conv_cases:
+            n, h, w, ci, co, kh, kw, st, pad, act = case
             x = rand((n, h, w, ci), dtype)
             wt = rand((kh, kw, ci, co), dtype, 0.2)
             b = rand((co,))
             kw_args = dict(strides=(st, st), padding=pad, act=act)
             what = f"conv2d {dtype} {(n, h, w, ci, co, kh, kw, st)}"
             y = conv_mod.conv2d_cuda(x, wt, b, **kw_args)
-            e = compare(y, conv2d_ref(x, wt, b, **kw_args), tol, tol, what)
+            # the wide and deep shapes: an fp32 atol that grows as K
+            k_atol = (conv_tol(kh, kw, ci)[1] if case in BIG_CONV_CASES
+                      else 1e-5)
+            e = compare(y, conv2d_ref(x, wt, b, **kw_args), tol,
+                        max(tol, k_atol), what)
             if dtype == torch.float32:
                 err["conv2d"] = max(err["conv2d"], e)
             else:
                 compare(y.float(), conv2d_ref(x.float(), wt.float(), b,
                                               **kw_args),
-                        BF16_ROUND_RTOL, BF16_ROUND_ATOL, what + " vs fp32")
+                        BF16_ROUND_RTOL, max(BF16_ROUND_ATOL, k_atol),
+                        what + " vs fp32")
         for shape, size, stride in pool_cases:
             x = rand(shape, dtype)
             e = compare(pool_mod.maxpool2d_cuda(x, size=size, strides=stride),
                         maxpool2d_ref(x, size=size, strides=stride), 0.0, 0.0,
                         f"maxpool2d {dtype} {shape} {size} {stride}")
             err["maxpool2d"] = max(err["maxpool2d"], e)
+        # a view 4 bytes off 16-byte alignment (narrower vectors), and
+        # NaNs inside a vector (channel 5 of 8) on a compiled and the
+        # runtime window: NaN exactly where the plain version has NaN
+        flat = rand((2 * 6 * 8 * 8 + 2,), dtype)
+        x = flat[4 // flat.element_size():][:2 * 6 * 8 * 8].view(2, 6, 8, 8)
+        assert x.data_ptr() % 16 == 4
+        compare(pool_mod.maxpool2d_cuda(x), maxpool2d_ref(x), 0.0, 0.0,
+                f"maxpool2d {dtype} off alignment")
+        x = rand((2, 7, 9, 8), dtype)
+        x[0, 0, 0, 5] = x[1, 3, 4, 5] = float("nan")
+        for size, stride in (((2, 2), None), ((2, 3), (1, 2))):
+            got = pool_mod.maxpool2d_cuda(x, size=size, strides=stride)
+            want = maxpool2d_ref(x, size=size, strides=stride)
+            if not (bool(want.isnan().any()) and torch.equal(
+                    got.isnan(), want.isnan()) and torch.equal(
+                        got.nan_to_num(), want.nan_to_num())):
+                raise AssertionError(f"maxpool2d {dtype} {size}: NaNs "
+                                     f"differ from the plain version")
     torch.cuda.synchronize()
     emit("kernels", conv2d_cases=len(conv_cases), maxpool2d_cases=len(
-        pool_cases), dtypes=["float32", "bfloat16"],
+        pool_cases) + 3, dtypes=["float32", "bfloat16"],
          tolerance={"conv2d": {"float32": 1e-5, "bfloat16": 3e-2,
+                               "float32_wide_and_deep_atol":
+                               "1e-5, above K 512 4 * 2**-24 * 0.2 * K",
                                "bfloat16_vs_fp32": {
                                    "rtol": BF16_ROUND_RTOL,
                                    "atol": BF16_ROUND_ATOL}},
                     "maxpool2d": 0.0},
+         conv2d_big_plans=[dict(
+             case=list(c[:9]), tile=[p.th, p.tw], col_tiles=p.col_tiles,
+             chunks=[p.c_chunks, p.h_chunks, p.w_chunks], cot=p.cot,
+             variant=p.variant, smem_bytes=p.smem_bytes)
+             for c in BIG_CONV_CASES for p in [conv_mod.conv_plan(
+                 *c[:7], (c[7], c[7]), c[8])]],
          max_abs_err_fp32=err)
 
     # -- 4. time at the robot detector's shapes, batch 256 ---------------
@@ -480,7 +513,8 @@ def main() -> int:
             variant="x".join(map(str, conv_mod.TAP_VARIANTS[plan.variant]))
             if plan.variant else "runtime taps",
             tile=dict(c=plan.c, p=plan.p, cot=plan.cot, lanes=plan.lanes,
-                      threads=plan.threads, th=plan.th, passes=plan.passes,
+                      threads=plan.threads, th=plan.th, tw=plan.tw,
+                      passes=plan.passes, chunks=plan.chunks,
                       grid=list(plan.grid), smem_bytes=plan.smem_bytes),
             ms=graph_ms(torch, lambda: conv_mod.conv2d_cuda(
                 x, wt, b, **kw_args)),
@@ -494,16 +528,34 @@ def main() -> int:
         y = pool_mod.maxpool2d_cuda(x, size=l.size, strides=l.strides)
         compare(y, maxpool2d_ref(x, size=l.size, strides=l.strides), 0.0,
                 0.0, f"maxpool2d {l.name} at batch {BATCH}")
-        x_lib = x.permute(0, 3, 1, 2)
+        plan = pool_mod.pool_plan(BATCH, h, w, c, *l.size, *l.strides)
+        # copies of x, together past twice the L2, for the cold readings
+        xs = [x] + [x.clone() for _ in range(-(-COLD_BYTES // nbytes(x)) - 1)]
+
+        def kernel(x_):
+            return pool_mod.maxpool2d_cuda(x_, size=l.size, strides=l.strides)
+
+        def plain(x_):
+            return maxpool2d_ref(x_, size=l.size, strides=l.strides)
+
+        def library(x_):
+            return F.max_pool2d(x_.permute(0, 3, 1, 2), l.size, l.strides)
+
         rows["maxpool2d"].append(dict(
             layer=l.name, x=list(x.shape),
-            ms=graph_ms(torch, lambda: pool_mod.maxpool2d_cuda(
-                x, size=l.size, strides=l.strides)),
-            plain_ms=graph_ms(torch, lambda: maxpool2d_ref(
-                x, size=l.size, strides=l.strides)),
-            library_ms=graph_ms(torch, lambda: F.max_pool2d(
-                x_lib, l.size, l.strides)),
+            plan=dict(variant="x".join(map(str, pool_mod.POOL_VARIANTS[
+                plan.variant])) if plan.variant else "runtime taps",
+                vec_bytes=plan.vec,
+                block=list(plan.block), grid=list(plan.grid)),
+            ms=graph_ms(torch, lambda: kernel(x)),
+            plain_ms=graph_ms(torch, lambda: plain(x)),
+            library_ms=graph_ms(torch, lambda: library(x)),
+            cold_copies=len(xs),
+            cold_ms=cold_graph_ms(torch, kernel, xs),
+            plain_cold_ms=cold_graph_ms(torch, plain, xs),
+            library_cold_ms=cold_graph_ms(torch, library, xs),
             nbytes=nbytes(x, y), ops=y.numel() * (l.size[0] * l.size[1] - 1)))
+        del xs
     for kernel, rs in rows.items():
         for r in rs:
             (r["bound_ms"], r["bound_by"], r["bytes_ms"],
@@ -982,6 +1034,9 @@ def main() -> int:
         t_bytes = sum(n * r["bytes_ms"] for n, r in zip(per, rs))
         t_ops = sum(n * r["ops_ms"] for n, r in zip(per, rs))
         source, replaces = KERNELS[kernel]
+        if kernel == "maxpool2d":  # the pools read x from device memory
+            rs = [dict(r, ms=r["cold_ms"], plain_ms=r["plain_cold_ms"],
+                       library_ms=r["library_cold_ms"]) for r in rs]
         lib = [r["library_ms"] for r in rs]
         entry = {
             "name": kernel, "route": "cuda", "source": source,
@@ -996,7 +1051,8 @@ def main() -> int:
             "library_ms": (None if None in lib else
                            sum(n * x for n, x in zip(per, lib)))}
         if kernel in rows:
-            entry.update(per="robot forward", layers=len(rs), batch=BATCH)
+            entry.update(per="robot forward", layers=len(rs), batch=BATCH,
+                         inputs="cold" if kernel == "maxpool2d" else "warm")
         else:
             arch = {v: a for a, v in lm_kernel_of.items()}[kernel]
             entry.update(per=f"{arch} prefill", launches_per_prefill=sum(per),

@@ -40,8 +40,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "conv2d_nhwc_f32": [_P] * 6,  # x, w, b, y, &ConvArgs, stream
     "conv2d_nhwc_bf16": [_P] * 6,
-    "maxpool2d_nhwc_f32": [_P] * 2 + [_I] * 10 + [_P],
-    "maxpool2d_nhwc_bf16": [_P] * 2 + [_I] * 10 + [_P],
+    "maxpool2d_nhwc_f32": [_P] * 4,  # x, y, &PoolArgs, stream
+    "maxpool2d_nhwc_bf16": [_P] * 4,
     "flash_attention_f32": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3
     + [_F, _P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3

@@ -5,20 +5,22 @@ Replaces the JAX package's Pallas TPU kernel ``_conv_kernel`` /
 bias and none / relu / leaky_relu, fp32 accumulation, output in
 ``x.dtype``.  "same" padding is split the TensorFlow way.
 
-A block computes ``th`` output rows at the full output width and ``cot``
-output channels of one image.  It stages the input strip under those
-rows, halo and zero padding included, and its filters in shared memory
-as fp32 (by ``cp.async`` where fp32); each thread then accumulates ``p``
-output pixels by ``c`` output channels in registers, with the filter
-taps compiled in for the shapes of the four nets and one instantiation
-that takes them at run time.  :func:`conv_plan` chooses the
-instantiation and the tile; it is pure Python, so the CPU tests check
-it.  The TPU kernel's ``block_cout`` lane tiling becomes the block's
-channel tile.  What bounds each layer, and why the kernel stays in fp32
-on the CUDA cores, is in the note at the top of the source.  The
-wrapper raises where even one output row and its filters do not fit in
-a block's shared memory (3x3 taps at CI 16: inputs wider than about 950
-pixels).
+A block computes ``th`` output rows by ``tw`` output columns (the full
+output width where such a row fits) and ``cot`` output channels of one
+image.  It stages the input strip under those pixels, halo and zero
+padding included, and its filters in shared memory as fp32 (by
+``cp.async`` where fp32); each thread then accumulates ``p`` output
+pixels by ``c`` output channels in registers, with the filter taps
+compiled in for the shapes of the four nets.  Every other shape takes a
+general kernel with runtime taps, which also covers column tiles where
+a full output row does not fit and, where a narrow tile's strip and
+filters still do not fit, walks the filter in chunks of input channels
+(and, for very large windows, of filter rows or columns), so every
+shape the TPU kernel takes gets a plan.  :func:`conv_plan` chooses the
+instantiation, the tile and the chunks; it is pure Python, so the CPU
+tests check it.  The TPU kernel's ``block_cout`` lane tiling becomes the
+block's channel tile.  What bounds each layer, and why the kernel stays
+in fp32 on the CUDA cores, is in the note at the top of the source.
 
 ``launches`` counts the kernel launches of this process; it is a plain
 integer, read and reset by ``chip_smoke.py``.
@@ -69,12 +71,20 @@ _count_lock = threading.Lock()
 class ConvPlan:
     """How ``csrc/conv2d.cu`` covers one convolution.
 
-    The grid is (n * row_tiles, co_tiles); a block has ``threads`` =
-    (cot / c) channel groups of ``lanes`` threads.  Output pixel (r, col)
-    of a row tile is position q = r * wq + col of the tile's flattened
-    rows, whose input window starts at strip pixel q * sw; columns from
-    ow to wq are computed and dropped.  A thread holds positions
-    lane + k * lanes, k < p, of each of ``passes`` passes."""
+    The grid is (n * row_tiles * col_tiles, co_tiles); a block has
+    ``threads`` = (cot / c) channel groups of ``lanes`` threads and covers
+    ``th`` output rows by ``tw`` output columns.  Output pixel (r, col) of
+    a tile is position q = r * wq + col of the tile's flattened rows,
+    whose input window starts at strip pixel q * sw; columns from the
+    tile's width to wq are computed and dropped.  A thread holds
+    positions lane + k * lanes, k < p, of each of ``passes`` passes.
+
+    Where the strip and the filters do not fit at once, the block walks
+    chunks: ``khc`` filter rows by ``kwc`` filter columns by ``cc`` input
+    channels, staging each chunk's strip and filters in turn while its
+    sums stay in registers.  Variant 0 (runtime taps) runs the general
+    kernel; the compiled variants run the compiled-tap kernel, and their
+    plans are whole: one column tile and one chunk."""
     n: int
     oh: int
     ow: int
@@ -89,25 +99,43 @@ class ConvPlan:
     th: int             # output rows of a block
     row_tiles: int
     passes: int
-    wp: int             # strip width: input width plus padding
+    wp: int             # strip width (the padded input width at full width)
     wq: int             # flattened output positions a row takes
     ci4: int            # input channels rounded up to 4
     cip: int            # floats a strip pixel takes in shared memory
     strip_rows: int
     strip_pix: int      # strip pixels allocated (the reads' reach)
     smem_bytes: int
+    tw: int             # output columns of a block
+    col_tiles: int
+    cc: int             # input channels of a chunk (a multiple of 4)
+    c_chunks: int
+    khc: int            # filter rows of a chunk
+    h_chunks: int
+    kwc: int            # filter columns of a chunk
+    w_chunks: int
 
     @property
     def threads(self) -> int:
         return self.cot // self.c * self.lanes
 
     @property
+    def chunks(self) -> int:
+        return self.c_chunks * self.h_chunks * self.w_chunks
+
+    @property
     def grid(self) -> Tuple[int, int]:
-        return (self.n * self.row_tiles, self.co_tiles)
+        return (self.n * self.row_tiles * self.col_tiles, self.co_tiles)
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _divisions(m: int):
+    """The distinct sizes ceil(m / k) for k = 1 .. m, largest first: the
+    tile or chunk sizes that split ``m`` into k nearly equal parts."""
+    return sorted({_ceil(m, k) for k in range(1, m + 1)}, reverse=True)
 
 
 def _channel_options(co: int):
@@ -143,53 +171,94 @@ def _clocks(blocks: int, threads: int, smem: int, acc: int, fmas: int,
 
 
 def _tiles(n: int, h: int, w: int, ci: int, co: int, kh: int, kw: int,
-           strides: Tuple[int, int], padding: str):
+           strides: Tuple[int, int], padding: str, widths=None, chunk=None):
     """Every tile of x (n,h,w,ci) and w (kh,kw,ci,co) that fits in shared
     memory and has the fewest rows for its count of row tiles, as
     (option, rank, fields): ``option`` indexes :func:`_channel_options`,
     ``rank`` orders an option's tiles by the model (blocks up to two an
-    SM, then :func:`_clocks`), ``fields`` are the ConvPlan's."""
+    SM, then :func:`_clocks`), ``fields`` are the ConvPlan's.  ``widths``
+    are the tile widths to try (default: the full output width) and
+    ``chunk`` the (cc, khc, kwc) a chunk takes (default: all of them)."""
     sh, sw = (int(s) for s in strides)
     pt, pb, pl, pr = _conv_pads((h, w, ci), kh, kw, (sh, sw), padding)
     oh = (h + pt + pb - kh) // sh + 1
     ow = (w + pl + pr - kw) // sw + 1
     if oh < 1 or ow < 1:
         raise ValueError(f"window {kh}x{kw} larger than input {h}x{w}")
-    key = (kh, kw, sh, sw)
-    variant = TAP_VARIANTS.index(key) if key in TAP_VARIANTS else 0
-    wp = w + pl + pr
-    while wp * sh % sw:
-        wp += 1          # q * sw must land on the strip's rows
-    wq = wp * sh // sw
     ci4 = _ceil(ci, 4) * 4
+    cc, khc, kwc = chunk or (ci4, kh, kw)
+    key = (kh, kw, sh, sw)
+    compiled = TAP_VARIANTS.index(key) if key in TAP_VARIANTS else 0
     # an odd count of 16-byte chunks a pixel: a warp's float4 reads of
     # 32 neighbouring pixels hit every bank once (stride 1)
-    cip = ci4 if (ci4 // 4) % 2 else ci4 + 4
-    taps = kh * kw
+    cip = cc if (cc // 4) % 2 else cc + 4
+    splits = (_ceil(ci4, cc), _ceil(kh, khc), _ceil(kw, kwc))
+    chunks = splits[0] * splits[1] * splits[2]
+    taps = khc * kwc
     heights = sorted({_ceil(oh, rt) for rt in range(1, oh + 1)})
     for option, (c, groups) in enumerate(_channel_options(co)):
         cot = c * groups
         co_tiles = _ceil(co, cot)
         p = PIXELS[c]
-        for th in heights:
-            strip_rows = (th - 1) * sh + kh
-            reach = (th * wq - 1) * sw + (kh - 1) * wp + kw
-            strip_pix = max(strip_rows * wp, reach)
-            smem = 4 * (strip_pix * cip + taps * ci4 * cot)
-            if smem > SMEM_BYTES:
-                break
-            row_tiles = _ceil(oh, th)
-            blocks = n * row_tiles * co_tiles
-            for lanes in range(32, MAX_THREADS // groups + 1, 32):
-                passes = _ceil(th * wq, p * lanes)
-                clocks, issued = _clocks(
-                    blocks, groups * lanes, smem, c * p,
-                    passes * p * c * taps * ci4,
-                    strip_rows * wp * ci4 + taps * ci4 * cot)
-                yield option, (-min(blocks, 2 * SMS), clocks, issued, -th), (
-                    n, oh, ow, pt, pl, variant, c, p, cot, co_tiles, lanes,
-                    th, row_tiles, passes, wp, wq, ci4, cip, strip_rows,
-                    strip_pix, smem)
+        for tw in widths or (ow,):
+            col_tiles = _ceil(ow, tw)
+            # a plan that is not whole takes the general kernel, whose
+            # taps are runtime values
+            variant = compiled if col_tiles == chunks == 1 else 0
+            # a full-width strip spans the padded row; a column tile's
+            # its own columns and their halo
+            wp = (w + pl + pr if (tw, kwc) == (ow, kw)
+                  else (tw - 1) * sw + kwc)
+            while wp * sh % sw:
+                wp += 1      # q * sw must land on the strip's rows
+            wq = wp * sh // sw
+            for th in heights:
+                strip_rows = (th - 1) * sh + khc
+                reach = (th * wq - 1) * sw + (khc - 1) * wp + kwc
+                strip_pix = max(strip_rows * wp, reach)
+                smem = 4 * (strip_pix * cip + taps * cc * cot)
+                if smem > SMEM_BYTES:
+                    break
+                row_tiles = _ceil(oh, th)
+                blocks = n * row_tiles * col_tiles * co_tiles
+                for lanes in range(32, MAX_THREADS // groups + 1, 32):
+                    passes = _ceil(th * wq, p * lanes)
+                    # a chunked block stages each chunk again each pass
+                    stages = chunks * passes if chunks > 1 else 1
+                    clocks, issued = _clocks(
+                        blocks, groups * lanes, smem, c * p,
+                        passes * p * c * chunks * taps * cc,
+                        stages * (strip_rows * wp * cc + taps * cc * cot))
+                    yield option, (-min(blocks, 2 * SMS), clocks, issued,
+                                   -th, -tw), (
+                        n, oh, ow, pt, pl, variant, c, p, cot, co_tiles,
+                        lanes, th, row_tiles, passes, wp, wq, ci4, cip,
+                        strip_rows, strip_pix, smem, tw, col_tiles, cc,
+                        splits[0], khc, splits[1], kwc, splits[2])
+
+
+def _best(tiles) -> Optional[ConvPlan]:
+    """Of the first channel option with a tile, the tile the model ranks
+    first; None where there is no tile."""
+    tiles = list(tiles)
+    if not tiles:
+        return None
+    first = min(option for option, _, _ in tiles)
+    return ConvPlan(*min((rank, fields) for option, rank, fields in tiles
+                         if option == first)[1])
+
+
+def _chunks(ci4: int, kh: int, kw: int):
+    """The (cc, khc, kwc) chunks to try where the whole filter does not
+    fit, fewest chunks first: input channels in fewer, larger chunks,
+    then (at 4 channels) filter rows, then (a row at a time) filter
+    columns."""
+    for cc in _divisions(ci4 // 4)[1:]:
+        yield 4 * cc, kh, kw
+    for khc in _divisions(kh)[1:]:
+        yield 4, khc, kw
+    for kwc in _divisions(kw)[1:]:
+        yield 4, 1, kwc
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,25 +266,29 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, kh: int, kw: int,
               strides: Tuple[int, int] = (1, 1),
               padding: str = "valid") -> ConvPlan:
     """The variant and tile ``csrc/conv2d.cu`` runs for x (n,h,w,ci) and
-    w (kh,kw,ci,co): of the first channel option with a tile that fits
-    in shared memory, the tile the model ranks first (see
-    :func:`_tiles`).  Raises ValueError where even one row of the
-    narrowest tile does not fit."""
-    tiles = list(_tiles(n, h, w, ci, co, kh, kw, strides, padding))
-    if not tiles:
-        raise ValueError(
-            f"conv2d: x {(n, h, w, ci)}, w {(kh, kw, ci, co)}: one output "
-            f"row and its filters need more than {SMEM_BYTES} bytes of "
-            f"shared memory")
-    first = min(option for option, _, _ in tiles)
-    return ConvPlan(*min((rank, fields) for option, rank, fields in tiles
-                         if option == first)[1])
+    w (kh,kw,ci,co), taking the first of these that fits in shared
+    memory: full-width row tiles; column tiles; column tiles over chunks
+    of the filter (:func:`_chunks`).  Within each, the tile
+    :func:`_best` picks.  One filter column of 4 input channels for 4
+    outputs always fits, so every shape gets a plan."""
+    args = (n, h, w, ci, co, kh, kw, strides, padding)
+    plan = _best(_tiles(*args))  # raises where the window exceeds x
+    if plan is None:
+        _, _, pl, pr = _conv_pads((h, w, ci), kh, kw, strides, padding)
+        widths = _divisions((w + pl + pr - kw) // strides[1] + 1)
+        plan = _best(_tiles(*args, widths=widths[1:]))
+        for chunk in ([] if plan else _chunks(_ceil(ci, 4) * 4, kh, kw)):
+            plan = _best(_tiles(*args, widths=widths, chunk=chunk))
+            if plan:
+                break
+    return plan
 
 
 # the plan's fields that follow alpha in ConvArgs
 PLAN_FIELDS = ("variant", "c", "cot", "lanes", "th", "row_tiles", "passes",
                "wp", "wq", "ci4", "cip", "strip_rows", "strip_pix",
-               "co_tiles", "smem_bytes")
+               "co_tiles", "smem_bytes", "tw", "col_tiles", "cc", "c_chunks",
+               "khc", "h_chunks", "kwc", "w_chunks")
 
 
 class ConvArgs(ctypes.Structure):

@@ -10,7 +10,9 @@ the JAX package, so it runs on a machine with a card and PyTorch alone:
 
 Tolerances: conv fp32 1e-5 (fp32 sums in another order), bf16 3e-2 (the
 output rounds to bf16) and within one bf16 rounding of the fp32 function
-of its inputs, pool exact; whole nets rtol 1e-4 / atol 1e-5,
+of its inputs; on the wide and deep shapes (``BIG_CONV_CASES``) fp32
+``conv_tol``: rtol 1e-5 and an atol that grows as the K products a sum
+takes, bf16 3e-2; pool exact; whole nets rtol 1e-4 / atol 1e-5,
 the tolerance of ``tests/test_pallas_cnn_path.py``; flash attention
 fp32 2e-5 and bf16 3e-2, linear scan fp32 1e-4 and bf16 5e-2 (also
 with decays down to 1e-6) and its two-halves state carry 1e-5, the
@@ -32,6 +34,8 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import linear_scan as scan_mod
 from repro_torch.kernels import maxpool2d as pool_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels.cases import (BIG_CONV_CASES, EDGE_CONV_CASES,
+                                       EDGE_POOL_CASES, conv_tol)
 
 CONV_CASES = [  # the cases of tests/test_kernels.py
     (1, 16, 16, 1, 8, 5, 5, 2, "same", "relu"),
@@ -63,31 +67,6 @@ NET_CONV_CASES = [
     (8, 16, 16, 8, 4, 1, 1, 1, "valid", None),
     (8, 16, 16, 8, 4, 3, 3, 1, "same", None),
     (8, 1, 1, 8, 4, 1, 1, 1, "valid", None),
-]
-# the tiled kernel's edges: H and W no multiple of the row tile, batch 1,
-# c_out one below and one above the channel tiles (12 a thread, 16, 24
-# and 32 a block), strips
-# whose rows are no whole 16-byte chunks (CI 1 and 3 at odd W), rows wider
-# than one pass, filters above 48 KB of shared memory, and shapes only the
-# runtime-tap instantiation takes (7x7, 3x2, 3x3 at stride 2)
-EDGE_CONV_CASES = [
-    (2, 37, 53, 8, 12, 3, 3, 1, "same", "leaky_relu"),
-    (1, 31, 45, 16, 20, 3, 3, 1, "same", "relu"),
-    (2, 9, 11, 8, 11, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 13, 3, 3, 1, "same", "relu"),
-    (2, 9, 11, 8, 15, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 17, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 23, 3, 3, 1, "same", "leaky_relu"),
-    (2, 9, 11, 8, 25, 3, 3, 1, "same", None),
-    (2, 9, 11, 8, 31, 3, 3, 1, "same", "relu"),
-    (2, 9, 11, 8, 33, 3, 3, 1, "same", "relu"),
-    (2, 13, 17, 1, 8, 3, 3, 1, "same", "relu"),
-    (2, 13, 17, 3, 8, 3, 3, 1, "same", "leaky_relu"),
-    (1, 5, 700, 4, 8, 3, 3, 1, "same", "relu"),
-    (1, 6, 7, 64, 64, 3, 3, 1, "same", None),
-    (1, 20, 22, 4, 8, 7, 7, 1, "same", "relu"),
-    (2, 10, 9, 5, 6, 3, 2, 1, "valid", None),
-    (2, 15, 17, 6, 10, 3, 3, 2, "same", "leaky_relu"),
 ]
 CUDA_CONV_CASES += NET_CONV_CASES + EDGE_CONV_CASES
 POOL_CASES = [
@@ -225,11 +204,41 @@ def test_conv2d_bf16_kernel_within_one_rounding(cuda, n, h, w, ci, co, kh,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape,size,stride", POOL_CASES + ROBOT_POOL_CASES)
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,padding,act",
+                         BIG_CONV_CASES)
+def test_conv2d_kernel_takes_wide_and_deep_shapes(cuda, n, h, w, ci, co, kh,
+                                                  kw, stride, padding, act,
+                                                  dtype):
+    """Column tiles and filter chunks: shapes whose full output row and
+    filters do not fit in a block's shared memory."""
+    td = DTYPES[dtype]
+    x = torch.from_numpy(_rnd(0, (n, h, w, ci))).to(cuda, td)
+    wt = torch.from_numpy(_rnd(1, (kh, kw, ci, co), 0.2)).to(cuda, td)
+    b = torch.from_numpy(_rnd(2, (co,))).to(cuda)
+    kw_args = dict(strides=(stride, stride), padding=padding, act=act)
+    before = conv_mod.launches
+    got = conv_mod.conv2d_cuda(x, wt, b, **kw_args)
+    want = ref.conv2d_ref(x, wt, b, **kw_args)
+    torch.cuda.synchronize()
+    assert conv_mod.launches == before + 1
+    rtol, atol = conv_tol(kh, kw, ci)
+    if dtype == "bfloat16":
+        rtol, atol = 3e-2, max(atol, 3e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,size,stride",
+                         POOL_CASES + ROBOT_POOL_CASES + EDGE_POOL_CASES)
 def test_maxpool_kernel_matches_plain(cuda, shape, size, stride, dtype):
     x = torch.from_numpy(_rnd(3, shape)).to(cuda, DTYPES[dtype])
+    before = pool_mod.launches
     got = pool_mod.maxpool2d_cuda(x, size=size, strides=stride)
     want = ref.maxpool2d_ref(x, size=size, strides=stride)
+    assert pool_mod.launches == before + 1
     assert torch.equal(got, want)
 
 
@@ -241,6 +250,39 @@ def test_maxpool_kernel_propagates_nan(cuda):
     want = ref.maxpool2d_ref(x)
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("size,stride", [((2, 2), None), ((3, 3), (2, 2)),
+                                         ((2, 3), (1, 2))])
+def test_maxpool_kernel_propagates_nan_in_a_vector_lane(cuda, dtype, size,
+                                                        stride):
+    """A NaN inside a 16-byte vector (channel 5 of 8: the second fp32
+    vector's second lane, the bf16 vector's sixth), in the first tap of
+    one window and a later tap of another, on the compiled and the
+    runtime windows."""
+    x = torch.from_numpy(_rnd(3, (2, 7, 9, 8))).to(cuda, DTYPES[dtype])
+    x[0, 0, 0, 5] = float("nan")
+    x[1, 3, 4, 5] = float("nan")
+    got = pool_mod.maxpool2d_cuda(x, size=size, strides=stride)
+    want = ref.maxpool2d_ref(x, size=size, strides=stride)
+    assert int(want.isnan().sum()) >= 2
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_maxpool_kernel_reads_a_tensor_off_16_byte_alignment(cuda, dtype):
+    """x a contiguous view 4 bytes past an allocation: the plan narrows
+    the vector to what the pointer allows."""
+    td = DTYPES[dtype]
+    flat = torch.from_numpy(_rnd(3, (2 * 6 * 8 * 8 + 2,))).to(cuda, td)
+    x = flat[4 // flat.element_size():][:2 * 6 * 8 * 8].view(2, 6, 8, 8)
+    assert x.data_ptr() % 16 == 4
+    got = pool_mod.maxpool2d_cuda(x)
+    assert torch.equal(got, ref.maxpool2d_ref(x))
 
 
 @pytest.mark.cuda
