@@ -48,7 +48,25 @@ propagates and the script exits non-zero:
    max_batch=32)``, each equal to ``session.predict`` (rtol 1e-5 /
    atol 1e-6); latency percentiles, QPS, batch occupancy, and the card's
    busy share while serving;
-8. lm_kernels — flash attention and the linear scan against their plain
+8. int8      — the paper's int8 path through
+   ``InferenceSession(backend="torch", precision="int8")`` on the card:
+   the robot calibrated on the card with the session's default
+   (percentile, 32 camera frames) and with minmax, each beside the same
+   calibration on the CPU (zero points, the layers whose zero point
+   differs, the largest relative scale difference); every net's int8
+   forward on the card held to the same quantized graph on the CPU, bit
+   for bit on the robot (64 frames, both calibrations) and at rtol 1e-5
+   / atol 1e-6 on ball, pedestrian and residual, whose sinks are
+   Softmax; top-1 agreement with the fp32 forward on 16 held-out camera
+   frames, at least 0.99; 256 frames served through
+   ``InferenceServer(workers=2, max_batch=32)``, each equal to
+   ``session.predict`` bit for bit, with QPS and p50 / p99; launches of
+   the four kernels over that path, all 0 (the int8 reference runs
+   none); then the robot forward at batch 256 on int8, ``"cuda"`` and
+   ``"torch"`` in turns, through a replayed CUDA graph between CUDA
+   events and as eager calls, the card's busy share over int8 forwards,
+   and int8 batch-1 latency;
+9. lm_kernels — flash attention and the linear scan against their plain
    versions on the card: the JAX suite's cases (flash fp32 2e-5 and
    bf16 3e-2; scan fp32 1e-4 and bf16 5e-2), the archs' head dims (80
    included, with one hubert-xlarge layer at full width), the scan at
@@ -56,12 +74,12 @@ propagates and the script exits non-zero:
    main path's shapes; every bf16 output also within one rounding
    (2**-8 relative) of the fp32 function of the same inputs; the scan's
    two-halves state carry at 1e-5 (N 4, 64 and 128);
-9. lm_time   — per LM kernel at the main path's shapes (gemma3-4b's
+10. lm_time   — per LM kernel at the main path's shapes (gemma3-4b's
    global and local attention layers, rwkv6-7b's scan; batch 4, 1536
    tokens): the kernel, its plain version and the library call where
    one exists, through a replayed CUDA graph; bytes, operations and the
    bound;
-10. lm_main  — per arch (gemma3-4b, rwkv6-7b) at full published width in
+11. lm_main  — per arch (gemma3-4b, rwkv6-7b) at full published width in
    bf16 with random weights from seed 0: ``LMSession(backend="cuda-lm")``
    with the kernel policy and with the plain policy on 4 prompts of 1536
    tokens, ``max_context`` 2048, 16 new tokens, each run's kernel
@@ -75,15 +93,15 @@ propagates and the script exits non-zero:
    distance from the fp32 model's after every layer; then the arch's
    ``.smoke()`` config in fp32, where both policies give the same
    tokens;
-11. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``:
+12. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``:
    each result equals ``session.generate`` on the same prompts;
-12. the kernels line — per kernel: launches in phases 5-7 (CNN) or 10-11
+13. the kernels line — per kernel: launches in phases 5-7 (CNN) or 11-12
    (LM: the kernel policy's run in ``lm_main``, the server's in
    ``lm_serve``), each counted from 0 and read as it ends, max error, and
    the kernel's, plain version's, bound's and library's ms per robot
    forward at batch 256 (maxpool2d's from the cold readings) or per LM
    prefill;
-13. the last line — ``{"ok": true, "device": {...}}``.
+14. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -659,7 +677,125 @@ def main() -> int:
          traced_device_busy_share=busy_ms / traced_wall_ms,
          launches=launches["serve"])
 
-    # -- 8. LM kernels against their plain versions ----------------------
+    # -- 8. int8: calibration, the int8 reference, its session and server -
+    from repro_torch.core import quantize as quantize_mod
+    from repro_torch.core.torch_exec import forward_quantized
+    from repro_torch.data.pipeline import camera_frame_batch
+    from repro_torch.engine import CalibrationConfig
+
+    def int8_session(name, method=None, device=None):
+        """The int8 session with the default calibration data (32 camera
+        frames) and ``method`` (None: the session's default)."""
+        return InferenceSession(nets[name](0), config=SessionConfig(
+            backend="torch", precision="int8", device=device,
+            calibration=CalibrationConfig(method=method)))
+
+    def on_cpu(sess, frames):
+        """The same quantized graph's int8 forward on the CPU."""
+        with torch.inference_mode():
+            return forward_quantized(sess.qgraph,
+                                     torch.from_numpy(frames)).numpy()
+
+    reset_counts()
+    calib, int8_sessions = {}, {}
+    for method in ("percentile", "minmax"):
+        card = int8_session("robot", None if method == "percentile"
+                            else method)
+        cpu = int8_session("robot", card.qgraph.method, "cpu")
+        assert card.qgraph.method == method, card.qgraph.method
+        acts, acts_cpu = card.qgraph.acts, cpu.qgraph.acts
+        calib[method] = dict(
+            zero_points={n: qp.zero_point for n, qp in acts.items()},
+            zero_points_differ_from_cpu=[n for n in acts if acts[n].zero_point
+                                         != acts_cpu[n].zero_point],
+            max_rel_scale_diff_vs_cpu=max(
+                abs(acts[n].scale / acts_cpu[n].scale - 1.0) for n in acts))
+        int8_sessions["robot " + method] = card
+    robot8 = int8_sessions["robot percentile"]  # the session's default
+    for name in ("ball", "pedestrian", "residual"):
+        int8_sessions[name] = int8_session(name)
+    parity = {}
+    for key, sess in int8_sessions.items():
+        name = key.split()[0]
+        frames = np.random.default_rng(7).normal(
+            size=(main_batch[name],) + tuple(sess.input_shape)).astype(
+                np.float32)
+        got, want = sess.predict(frames), on_cpu(sess, frames)
+        if name == "robot":
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"int8 {key}: card differs from the CPU on "
+                    f"{int((got != want).sum())} of {got.size} outputs")
+            e = 0.0
+        else:
+            e = compare(torch.from_numpy(got), torch.from_numpy(want),
+                        1e-5, 1e-6, f"int8 {key} card vs cpu")
+        parity[key] = dict(batch=len(frames), shape=list(got.shape),
+                           max_abs_err_vs_cpu=e,
+                           bit_equal=bool(np.array_equal(got, want)))
+    held_out = camera_frame_batch(16, tuple(robot8.input_shape), seed=99)
+    top1 = quantize_mod.quantization_error(robot8.qgraph, held_out)
+    if not top1["top1_agreement"] >= 0.99:
+        raise AssertionError(f"int8 robot top-1 on held-out frames: {top1}")
+    frames = np.random.default_rng(11).normal(
+        size=(256,) + tuple(robot8.input_shape)).astype(np.float32)
+    t0 = time.perf_counter()
+    with InferenceServer(robot8, config=ServerConfig(
+            workers=2, max_batch=32)) as srv:
+        handles = [srv.submit(f) for f in frames]
+        outs = [h.result(timeout=120) for h in handles]
+        st8 = srv.stats()
+    serve_s = time.perf_counter() - t0
+    assert st8["completed"] == len(frames), st8
+    assert st8["failed"] == st8["timeouts"] == 0, st8
+    for i, (o, f) in enumerate(zip(outs, frames)):
+        if not np.array_equal(o, robot8.predict(f)):
+            raise AssertionError(f"int8 served frame {i} differs from "
+                                 f"session.predict")
+    torch.cuda.synchronize()
+    int8_launches = counts()
+    if any(int8_launches.values()):
+        raise AssertionError(f"the int8 path launched {int8_launches}")
+
+    x = torch.from_numpy(frames[:BATCH]).to(dev)
+    mods = {"int8": robot8.backend.module,
+            "cuda": robot_sess.backend.module,
+            "torch": robot_plain.backend.module}
+    fwd8 = {k: {"graph_ms": [], "eager_ms": []} for k in mods}
+    with torch.inference_mode():
+        y8 = mods["int8"](x)
+        if not (y8.shape == (BATCH,) + tuple(robot8.output_shape)
+                and bool(y8.isfinite().all())):
+            raise AssertionError(f"int8 forward at batch {BATCH}: "
+                                 f"{tuple(y8.shape)}")
+        for key in ("int8", "cuda", "torch", "torch", "cuda", "int8"):
+            fwd8[key]["graph_ms"].append(graph_ms(torch, lambda: mods[key](x)))
+            fwd8[key]["eager_ms"].append(events_ms(
+                torch, lambda: [mods[key](x) for _ in range(10)], 10))
+        busy_ms, wall_ms, top = device_busy(
+            torch, lambda: [mods["int8"](x) for _ in range(10)])
+    torch.cuda.synchronize()
+    emit("int8", net="robot", nvidia_smi=smi, calibration=calib,
+         calibration_frames=robot8.config.calibration.samples,
+         parity=parity, tolerance={"robot": "bit for bit",
+                                   "softmax sinks": {"rtol": 1e-5,
+                                                     "atol": 1e-6}},
+         top1_agreement=top1["top1_agreement"],
+         max_abs_err_vs_fp32=top1["max_abs_err"], held_out_frames=16,
+         served_frames=len(frames), served_bit_equal=True, serve_s=serve_s,
+         qps=st8["qps"], latency_p50_us=st8["latency_p50_us"],
+         latency_p99_us=st8["latency_p99_us"],
+         batch_size_mean=st8["batch_size_mean"], launches=int8_launches,
+         batch=BATCH, forward={k: dict(v, graph_ms_median=statistics.median(
+             v["graph_ms"]), eager_ms_median=statistics.median(
+                 v["eager_ms"])) for k, v in fwd8.items()},
+         profiled_busy_ms=busy_ms / 10, profiled_wall_ms=wall_ms / 10,
+         device_busy_share=busy_ms / wall_ms, top_device_kernels=top,
+         latency_us_b1=robot8.benchmark(iters=200, warmup=20))
+    del int8_sessions, robot8, mods, x, y8
+    torch.cuda.empty_cache()
+
+    # -- 9. LM kernels against their plain versions ----------------------
     from repro_torch.configs.lm_archs import ARCHS
     from repro_torch.engine import CudaLMBackend, LMConfig, LMSession
     from repro_torch.models.kernel_policy import (DEFAULT_KERNELS,
@@ -781,7 +917,7 @@ def main() -> int:
          max_abs_err=lm_err, state_carry_err=carry_err,
          bf16_main_shape_rel_l2_vs_fp32=main_rel_l2)
 
-    # -- 9. LM kernel time at the main path's shapes ---------------------
+    # -- 10. LM kernel time at the main path's shapes --------------------
     lm_rows = {"flash_attention": [], "linear_scan": []}
     t = LM_PROMPT
     for kind, (window, per_prefill) in flash_main.items():
@@ -828,7 +964,7 @@ def main() -> int:
                                   rate or FP32_OPS_PER_S)
             emit("lm_time", kernel=kernel, **r)
 
-    # -- 10-11. the LM main path and serving, one arch at a time ---------
+    # -- 11-12. the LM main path and serving, one arch at a time ---------
     def timed_generate(sess, prompts, max_new):
         """Greedy tokens, the prefill's last logits, and the seconds of
         the prefill and of the decode steps (each ends on the host)."""
@@ -1022,7 +1158,7 @@ def main() -> int:
         lm_phases(arch)
         torch.cuda.empty_cache()
 
-    # -- 12. the kernels line --------------------------------------------
+    # -- 13. the kernels line --------------------------------------------
     for phase, got in launches.items():
         want = ([lm_kernel_of[phase.split()[1]]] if phase.startswith("lm_")
                 else ["conv2d", "maxpool2d"])

@@ -8,6 +8,11 @@ Counterpart of the JAX package's ``core/jax_exec.py`` float executor:
   conv2d and maxpool2d kernels (the ``"cuda"`` backend, counterpart of
   ``jax_exec.forward_pallas`` behind ``"pallas"``), with the same
   dispatch rules.
+* :func:`forward_quantized` — the int8 reference (the ``"torch"``
+  backend at ``precision="int8"``, counterpart of
+  ``jax_exec.forward_quantized`` behind ``"xla-int8"``), bit for bit on
+  the integer path; :class:`QuantizedCNNModule` holds its constants on
+  one device.
 
 Evaluation is a topological walk keyed by layer name, so branching DAGs
 (residual Adds, Concats) run through the same code as sequential nets.
@@ -341,3 +346,216 @@ class CNNModule(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fn = forward_kernels if self.kernels else forward
         return fn(self.graph, x, self.params())
+
+
+# ------------------------------------------------------------- int8 ----
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def _zp(qp, device) -> torch.Tensor:
+    """A zero point (per-tensor, or per channel on the last axis) as
+    float32: the int8 path holds its codes in float32, which represents
+    every code, and every difference of codes, exactly."""
+    return _f32(qp.zero_point, device)
+
+
+def quantized_constants(qg, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per layer, the constants :func:`forward_quantized` reads, as
+    tensors on ``device``: multipliers and scales in float32 exactly as
+    ``qg`` derives them, zero points as float32, weights as float64
+    (exact for int8 codes), biases as int32.  ``qg`` is a
+    :class:`repro_torch.core.quantize.QuantizedGraph`."""
+    g = qg.graph
+    sink = g.sink
+    smap = g.shape_map()
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for layer in g.layers:
+        k: Dict[str, torch.Tensor] = {}
+        if isinstance(layer, Input):
+            qp = qg.acts[layer.name]
+            k = {"inv": _f32(qp.inv_scale, device), "zp": _zp(qp, device)}
+        elif isinstance(layer, _WEIGHTED):
+            lq = qg.weights[layer.name]
+            w = lq.w_q.astype(np.float64)
+            if isinstance(layer, DepthwiseConv2D):  # HWCM -> HWIO, I=1
+                w = w.reshape(layer.kh, layer.kw, 1, layer.c_out)
+            cin = qg.in_channel_qp(layer)
+            k = {"w": torch.as_tensor(w, device=device),
+                 "b": torch.as_tensor(lq.b_q.astype(np.int32), device=device),
+                 "zp_in": _zp(cin if cin is not None else qg.in_qp(layer),
+                              device),
+                 "alpha": _f32(getattr(layer, "alpha", 0.0), device)}
+            if layer is sink:
+                k["m"] = _f32(qg.dequant_scales(layer), device)
+            else:
+                cq = qg.channel_qp(layer.name)
+                k["m"] = _f32(qg.requant_scales(layer), device)
+                k["zp"] = _zp(cq if cq is not None else qg.out_qp(layer),
+                              device)
+        elif isinstance(layer, (AvgPool, GlobalAvgPool)):
+            m = qg.pool_scales(layer, smap[layer.inputs[0]])
+            if isinstance(layer, AvgPool):
+                m = m[None, :, :, None]
+            k = {"zp_in": _zp(qg.in_qp(layer), device),
+                 "m": _f32(m, device), "zp": _zp(qg.out_qp(layer), device)}
+        elif isinstance(layer, (Add, Concat, ReLU, LeakyReLU)):
+            k = {"zp": _zp(qg.out_qp(layer), device),
+                 "alpha": _f32(getattr(layer, "alpha", 0.0), device)}
+            for i in range(len(layer.inputs)):
+                k[f"zp_in{i}"] = _zp(qg.in_qp(layer, i), device)
+                k[f"r{i}"] = _f32(qg.rescale(layer, i), device)
+        elif isinstance(layer, Softmax):
+            qp = qg.in_qp(layer)
+            k = {"zp_in": _zp(qp, device), "s": _f32(qp.scale, device)}
+        if k:
+            out[layer.name] = k
+    return out
+
+
+def _codes(t: torch.Tensor, zp: torch.Tensor) -> torch.Tensor:
+    """float32 value in output-scale units -> int8 codes, held as
+    float32: ``clip(floor(t + 0.5) + zp, -128, 127)``, one op at a
+    time.  Equal to the reference's int32 sequence wherever that one is
+    defined: below 2**24 the float sum is exact, above it both clip."""
+    return torch.clamp(torch.floor(t + 0.5) + zp, -128.0, 127.0)
+
+
+def _int_acc(acc: torch.Tensor) -> torch.Tensor:
+    """A float64 sum of int8-code products -> the exact int32
+    accumulator.  Every product is an integer of at most 255 * 127 and
+    every partial sum stays far below 2**53, so the float64 sum is exact
+    in any order, or off by far less than 0.5 where cuDNN picks a
+    Winograd or FFT algorithm; rounding gives the integer."""
+    return torch.round(acc).to(torch.int32)
+
+
+def _q_act(t: torch.Tensor, kind: Optional[str],
+           alpha: torch.Tensor) -> torch.Tensor:
+    if kind == "relu":
+        return torch.where(t > 0, t, 0.0)
+    if kind == "leaky_relu":
+        return torch.where(t > 0, t, alpha * t)
+    return t
+
+
+def _affine_out(layer, acc: torch.Tensor, k, is_sink: bool):
+    """Requantize a weighted layer's int32 accumulator (or dequantize it,
+    on the sink) through its float32 multipliers, one op at a time."""
+    t = _q_act(acc.to(torch.float32) * k["m"], layer.activation, k["alpha"])
+    if is_sink:
+        return torch.softmax(t, dim=-1) if layer.activation == "softmax" \
+            else t
+    return _codes(t, k["zp"])
+
+
+def forward_quantized(qg, x: torch.Tensor,
+                      consts: Optional[Dict[str, Dict[str, torch.Tensor]]]
+                      = None) -> torch.Tensor:
+    """Int8 reference forward of a
+    :class:`repro_torch.core.quantize.QuantizedGraph` on ``x``'s device:
+    float32 NHWC in, the dequantized float32 sink out (softmax, when on
+    the sink, in float32).  ``consts`` are
+    :func:`quantized_constants` on that device (built here if omitted).
+
+    The JAX reference's op order, one op at a time, so nothing contracts
+    into an FMA: the input is ``floor(x * inv_scale + 0.5) + zp``
+    clipped; a weighted layer's accumulator is exact, computed in
+    float64 on ``q - zp`` (``F.conv2d``, ``groups=c_in`` for depthwise;
+    ``@`` for Dense, NHWC flattened channel fastest), rounded, cast to
+    int32 and added to ``b_q``; then ``float32(acc) * M``, the
+    activation, ``floor(t + 0.5) + zp``, clip.  MaxPool is a pure max on
+    codes; AvgPool and GlobalAvgPool sum ``q - zp`` and multiply by
+    ``pool_scales``; Add, Concat, ReLU and LeakyReLU rescale each input
+    edge by ``rescale(layer, idx)``.  The card has no integer
+    convolution, so the codes are held in float32 (exact) and the sums
+    in float64 (exact) on either device: one code path."""
+    g = qg.graph
+    _check_input(g, x)
+    c = quantized_constants(qg, x.device) if consts is None else consts
+    sink = g.sink
+    smap = g.shape_map()
+    vals: Dict[str, torch.Tensor] = {}
+    for layer in g.layers:
+        name = layer.name
+        k = c.get(name)
+        if isinstance(layer, Input):
+            vals[name] = _codes(x.to(torch.float32) * k["inv"], k["zp"])
+            continue
+        ins = [vals[n] for n in layer.inputs]
+        q = ins[0]
+        in_shape = smap[layer.inputs[0]]
+        if isinstance(layer, (Conv2D, DepthwiseConv2D)):
+            groups = (layer.c_in if isinstance(layer, DepthwiseConv2D)
+                      else 1)
+            acc = _conv((q - k["zp_in"]).to(torch.float64), k["w"], None,
+                        layer.strides, layer.pad_amounts(in_shape), groups)
+            vals[name] = _affine_out(layer, _int_acc(acc) + k["b"], k,
+                                     layer is sink)
+        elif isinstance(layer, Dense):
+            # subtract over channels first, then flatten
+            flat = (q - k["zp_in"]).to(torch.float64).reshape(q.shape[0], -1)
+            acc = _int_acc(flat @ k["w"]) + k["b"]
+            vals[name] = _affine_out(layer, acc.reshape(acc.shape[0], 1, 1,
+                                                        -1), k, layer is sink)
+        elif isinstance(layer, MaxPool):
+            # the same qparams in and out: a pure max on codes; a padded
+            # tap never wins (every window holds a valid one)
+            vals[name] = _pool(q, layer.size, layer.strides,
+                               layer.pad_amounts(in_shape), "max")
+        elif isinstance(layer, AvgPool):
+            acc = _pool((q - k["zp_in"]).to(torch.float64), layer.size,
+                        layer.strides, layer.pad_amounts(in_shape), "sum")
+            vals[name] = _codes(acc.to(torch.float32) * k["m"], k["zp"])
+        elif isinstance(layer, GlobalAvgPool):
+            acc = (q - k["zp_in"]).to(torch.float64).sum(dim=(1, 2),
+                                                         keepdim=True)
+            vals[name] = _codes(acc.to(torch.float32) * k["m"], k["zp"])
+        elif isinstance(layer, Concat):
+            vals[name] = torch.cat(
+                [_codes((qi - k[f"zp_in{i}"]) * k[f"r{i}"], k["zp"])
+                 for i, qi in enumerate(ins)], dim=-1)
+        elif isinstance(layer, (Add, ReLU, LeakyReLU)):
+            t = (q - k["zp_in0"]) * k["r0"]
+            for i in range(1, len(ins)):
+                t = t + (ins[i] - k[f"zp_in{i}"]) * k[f"r{i}"]
+            kind = ("relu" if isinstance(layer, ReLU) else "leaky_relu"
+                    if isinstance(layer, LeakyReLU) else layer.activation)
+            vals[name] = _codes(_q_act(t, kind, k["alpha"]), k["zp"])
+        elif isinstance(layer, Softmax):
+            if layer is not sink:
+                raise ValueError("standalone Softmax only supported as sink")
+            vals[name] = torch.softmax((q - k["zp_in"]) * k["s"], dim=-1)
+        elif isinstance(layer, Dropout):
+            vals[name] = q
+        elif isinstance(layer, Flatten):
+            vals[name] = q.reshape(q.shape[0], 1, 1, -1)
+        else:
+            raise TypeError(
+                f"forward_quantized: unhandled layer {type(layer).__name__}")
+    return vals[sink.name]
+
+
+class QuantizedCNNModule(nn.Module):
+    """A quantized graph with its :func:`quantized_constants` held as
+    buffers on one device; ``forward`` is :func:`forward_quantized`."""
+
+    def __init__(self, qgraph, *, device):
+        super().__init__()
+        self.qgraph = qgraph
+        self.graph = qgraph.graph
+        self._slots: Dict[str, Dict[str, str]] = {}
+        for name, k in quantized_constants(qgraph, device).items():
+            self._slots[name] = {}
+            for key, t in k.items():
+                buf = f"q{len(self._buffers)}"
+                self.register_buffer(buf, t)
+                self._slots[name][key] = buf
+
+    def constants(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {name: {key: getattr(self, buf) for key, buf in k.items()}
+                for name, k in self._slots.items()}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return forward_quantized(self.qgraph, x, self.constants())

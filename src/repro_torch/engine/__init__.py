@@ -1,15 +1,17 @@
 """The port's inference engine: CNN sessions over the ``"cuda"``
-(hand-written kernels) and ``"torch"`` (plain eager) backends, and LM
-sessions over ``"cuda-lm"``."""
+(hand-written kernels) and ``"torch"`` (plain eager; at
+``precision="int8"`` the int8 reference) backends, and LM sessions over
+``"cuda-lm"``."""
 from .backends import (Backend, CudaBackend, CudaLMBackend, KVCacheHandle,
-                       LMBackend, TorchBackend, available_backends,
-                       get_backend, register_backend)
-from .config import LMConfig, SessionConfig
+                       LMBackend, QuantizedTorchBackend, TorchBackend,
+                       available_backends, get_backend, register_backend)
+from .config import CalibrationConfig, LMConfig, SessionConfig
 from .lm import LMSession
 from .session import InferenceSession
 
 __all__ = [
     "Backend",
+    "CalibrationConfig",
     "CudaBackend",
     "CudaLMBackend",
     "InferenceSession",
@@ -17,6 +19,7 @@ __all__ = [
     "LMBackend",
     "LMConfig",
     "LMSession",
+    "QuantizedTorchBackend",
     "SessionConfig",
     "TorchBackend",
     "available_backends",

@@ -10,7 +10,12 @@ substrates:
   (:func:`torch_exec.forward_kernels`), the counterpart of ``"pallas"``.
 
 Both hold the graph's weights as buffers of a :class:`CNNModule` on one
-device.  ``worker()`` hands each server worker a handle with its own
+device.  At ``precision="int8"`` the session builds
+:class:`QuantizedTorchBackend` (``"torch-int8"``, the counterpart of
+``"xla-int8"``; not in the registry, since it needs the calibrated
+quantized graph): the int8 reference
+(:func:`torch_exec.forward_quantized`) over a
+:class:`QuantizedCNNModule`.  ``worker()`` hands each server worker a handle with its own
 ``torch.cuda.Stream`` over the same weights, so workers' batches can
 overlap on the card.
 
@@ -36,8 +41,8 @@ from ..core.graph import CNNGraph
 from ..models import lm as lm_mod
 from ..models.kernel_policy import DEFAULT_KERNELS, KernelPolicy
 from ..models.stack import init_params
-from ..core.torch_exec import (CNNModule, resolve_device,
-                               use_fp32_convolutions)
+from ..core.torch_exec import (CNNModule, QuantizedCNNModule,
+                               resolve_device, use_fp32_convolutions)
 
 _REGISTRY: Dict[str, Type["Backend"]] = {}
 
@@ -124,10 +129,12 @@ class _ModuleBackend(Backend):
     def __init__(self, graph: CNNGraph, device=None):
         super().__init__(graph)
         self.device = resolve_device(device)
-        self.module = CNNModule(graph, device=self.device,
-                                kernels=self.kernels)
+        self.module = self._make_module()
         self.stream = None
         self._sync()  # weights are on the card before any worker stream
+
+    def _make_module(self) -> torch.nn.Module:
+        return CNNModule(self.graph, device=self.device, kernels=self.kernels)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -195,6 +202,30 @@ class CudaBackend(_ModuleBackend):
     Dense/Flatten."""
 
     kernels = True
+
+
+class QuantizedTorchBackend(_ModuleBackend):
+    """The int8 reference (:func:`torch_exec.forward_quantized`) on one
+    device, the counterpart of the JAX package's ``QuantizedXLABackend``.
+    Constructed by the session at ``precision="int8"`` (not in the
+    registry: it needs the calibrated quantized graph, not just a
+    graph).  Launches none of the hand-written kernels: the accumulators
+    are float64 library products, exact for int8 codes.
+
+    Building it on a CUDA device switches cuDNN's TF32 off for the
+    process, as :class:`TorchBackend` does: every float convolution of
+    the process, a later calibration's included, then runs in fp32."""
+
+    name = "torch-int8"
+    precision = "int8"
+
+    def __init__(self, qgraph, device=None):
+        self.qgraph = qgraph
+        use_fp32_convolutions(resolve_device(device))
+        super().__init__(qgraph.graph, device)
+
+    def _make_module(self) -> torch.nn.Module:
+        return QuantizedCNNModule(self.qgraph, device=self.device)
 
 
 # =========================================================== LM workload ====

@@ -1,30 +1,94 @@
 """Typed, frozen session configuration (the port's part of the JAX
-package's ``engine/config.py``: ``SessionConfig`` and its ``lm``
-sub-config ``LMConfig``).
+package's ``engine/config.py``: ``SessionConfig``, its int8 calibration
+sub-config ``CalibrationConfig`` and its ``lm`` sub-config ``LMConfig``).
 
     cfg = SessionConfig(backend="cuda")              # a CNN on cuda:0
     cfg = SessionConfig(backend="torch", device="cpu")
+    cfg = SessionConfig(backend="torch", precision="int8",
+                        calibration=CalibrationConfig(method="minmax"))
     cfg = SessionConfig(backend="cuda-lm",           # an LM on cuda:0
                         lm=LMConfig(arch="gemma3-4b", smoke=False))
 
 ``device=None`` means the card (``cuda:0``); a session asked for the card
 on a machine without one raises ``RuntimeError``.  The C code generator's
 knobs (simd, unroll, threads, tuning, fusion, pipeline stages) have no
-meaning here; int8, autotuning and device meshes are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP items.
+meaning here; autotuning and device meshes are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..configs.lm_archs import ARCHS
+from ..core import quantize as quantize_mod
 from ..models.kernel_policy import ATTENTION_VARIANTS, SCAN_VARIANTS
 
 _PRECISIONS = ("fp32", "int8")
+
+
+@dataclass(frozen=True)
+class CalibrationConfig:
+    """The int8 calibration knobs (ignored at ``precision="fp32"``).
+
+    ``data`` is the representative sample batch ``(N, *in_shape)``; when
+    ``None`` the session synthesizes ``samples`` camera-like frames via
+    :func:`repro_torch.data.pipeline.camera_frame_batch` (bounded,
+    spatially smooth — the input domain the paper's nets actually see).
+    ``data`` is runtime state, not a knob: it is excluded from
+    ``to_dict()``.
+
+    ``method=None`` means *auto*: ``"minmax"`` when the caller provided
+    ``data`` (the historical, bit-stable behavior), ``"percentile"``
+    when the session synthesizes its default frames (outlier-tail clip
+    is what keeps the robot net's top-1 agreement >= 0.99 there).
+
+    ``qparams`` accepts externally-determined quantization parameters —
+    e.g. exported from a QAT run — as a mapping of layer name to
+    :class:`repro_torch.core.quantize.QParams` (or a ``(scale,
+    zero_point)`` pair).  When set, the session skips calibration
+    entirely; like ``data`` it is runtime state, not a serializable knob.
+
+    ``per_channel=True`` gives eligible layers per-output-channel
+    activation qparams (scales folded into the consumers' weight
+    quantization; see
+    :func:`repro_torch.core.quantize.per_channel_eligible`).  Ignored
+    when ``qparams`` is provided (the import format is per-tensor).
+    """
+
+    data: Optional[Any] = None          # np.ndarray; not serialized
+    samples: int = 32
+    method: Optional[str] = None        # None = auto (see above)
+    percentile: float = 99.99
+    qparams: Optional[Dict[str, Any]] = None  # QAT import; not serialized
+    per_channel: bool = False
+
+    def __post_init__(self):
+        if (self.method is not None
+                and self.method not in quantize_mod.CALIBRATION_METHODS):
+            raise ValueError(
+                f"calibration method {self.method!r}; expected one of "
+                f"{quantize_mod.CALIBRATION_METHODS} or None (auto)")
+        if not (0.0 < self.percentile <= 100.0):
+            raise ValueError(
+                f"calibration percentile {self.percentile!r} not in (0, 100]")
+        if self.samples < 1:
+            raise ValueError(f"calibration samples {self.samples} < 1")
+
+    def resolved_method(self, *, data_provided: bool) -> str:
+        """The concrete range-selection method after resolving auto."""
+        if self.method is not None:
+            return self.method
+        return "minmax" if data_provided else "percentile"
+
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON-safe knobs (``data`` omitted — arrays don't serialize)."""
+        return {"samples": self.samples, "method": self.method,
+                "percentile": self.percentile,
+                "per_channel": self.per_channel}
 
 
 @dataclass(frozen=True)
@@ -97,6 +161,17 @@ def _coerce_lm(v) -> Optional[LMConfig]:
                     f"got {type(v).__name__}")
 
 
+def _coerce_calibration(v) -> CalibrationConfig:
+    if isinstance(v, CalibrationConfig):
+        return v
+    if isinstance(v, dict):
+        return CalibrationConfig(**v)
+    if v is None:
+        return CalibrationConfig()
+    # legacy spelling: calibration=<sample batch array>
+    return CalibrationConfig(data=v)
+
+
 @dataclass(frozen=True)
 class SessionConfig:
     """Everything a session needs beyond the graph or the arch.
@@ -106,7 +181,10 @@ class SessionConfig:
       :func:`repro_torch.engine.backends.available_backends`.
     * ``optimize`` — run the NNCG passes (BN fold, activation fusion,
       channel alignment) before building a CNN backend.
-    * ``precision`` — ``"fp32"``.
+    * ``precision`` — ``"fp32"`` or ``"int8"`` (post-training int8,
+      ``backend="torch"`` only: the int8 reference runs no kernel).
+    * ``calibration`` — the int8 calibration knobs
+      (:class:`CalibrationConfig`, or a dict of its fields).
     * ``device`` — a torch device string; ``None`` = ``cuda:0``.
     * ``autotune`` — not ported yet.
     * ``lm`` — the LM workload (:class:`LMConfig`), served by
@@ -118,30 +196,46 @@ class SessionConfig:
     precision: str = "fp32"
     device: Optional[str] = None
     autotune: bool = False
+    calibration: CalibrationConfig = field(default_factory=CalibrationConfig)
     lm: Optional[LMConfig] = None
 
     def __post_init__(self):
         if self.precision not in _PRECISIONS:
             raise ValueError(
                 f"precision {self.precision!r}; expected one of {_PRECISIONS}")
-        if self.precision == "int8":
-            raise NotImplementedError(
-                "precision='int8' is not ported yet: ROADMAP.md Queue 1, "
-                "items 3-5 (torch int8 reference, calibration, int8 session)")
         if self.autotune:
             raise NotImplementedError(
                 "autotune=True is not ported yet: ROADMAP.md Queue 1, item 9 "
                 "(tune_lm_variants, device_digest)")
         if self.device is not None:
             torch.device(self.device)  # raises on a malformed device string
+        object.__setattr__(self, "calibration",
+                           _coerce_calibration(self.calibration))
         object.__setattr__(self, "lm", _coerce_lm(self.lm))
 
     def replace(self, **changes) -> "SessionConfig":
         """A copy with ``changes`` applied."""
         return dataclasses.replace(self, **changes)
 
+    def portable(self) -> "SessionConfig":
+        """The serializable projection of this config: the calibration
+        data and imported qparams dropped.  ``SessionConfig(**cfg.to_dict())``
+        equals ``cfg.portable()``."""
+        if (self.calibration.data is None
+                and self.calibration.qparams is None):
+            return self
+        return self.replace(calibration=dataclasses.replace(
+            self.calibration, data=None, qparams=None))
+
     def to_dict(self) -> Dict[str, Any]:
-        """JSON-safe dict; ``SessionConfig(**d)`` reconstructs."""
-        d = dataclasses.asdict(self)
-        d["lm"] = None if self.lm is None else self.lm.to_dict()
+        """JSON-safe dict; ``SessionConfig(**d)`` reconstructs
+        :meth:`portable`."""
+        p = self.portable()
+        d = dataclasses.asdict(p)
+        d["calibration"] = p.calibration.to_dict()
+        d["lm"] = None if p.lm is None else p.lm.to_dict()
         return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SessionConfig":
+        return cls(**d)

@@ -1,14 +1,23 @@
 """The port's inference entry point: one session over a registered
-backend (the fp32 part of the JAX package's ``engine/session.py``).
+backend (the JAX package's ``engine/session.py`` without the C code
+generator's pipeline).
 
     sess = InferenceSession(graph, config=SessionConfig(backend="cuda"))
     probs = sess.predict(batch)          # (N, *out_shape), on cuda:0
 
-The session runs the NNCG passes, builds the backend on its device and
-executes batches.  The C code generator's pipeline (ISA selection,
-autotuning, codegen) is the paper's CPU artifact and has no counterpart
-here, so channel alignment uses a fixed multiple of 4; padding channels
-with zero filters does not change the numbers.
+Post-training int8 is one more config field, on the ``"torch"`` backend:
+
+    sess = InferenceSession(graph, config=SessionConfig(
+        backend="torch", precision="int8",
+        calibration=CalibrationConfig(data=sample_batch)))
+
+The session runs the NNCG passes, calibrates and quantizes at int8,
+builds the backend on its device and executes batches.  The C code
+generator's pipeline (ISA selection, autotuning, codegen) is the paper's
+CPU artifact and has no counterpart here, so fp32 channel alignment uses
+a fixed multiple of 4 (padding channels with zero filters does not
+change the numbers); int8 aligns to 1, as the JAX session does, so the
+graph and its quantization equal the JAX session's.
 """
 from __future__ import annotations
 
@@ -17,9 +26,11 @@ from typing import Optional, Union
 import numpy as np
 
 from ..core import passes
+from ..core import quantize as quantize_mod
 from ..core.graph import CNNGraph
 from ..core.torch_exec import resolve_device
-from .backends import Backend, get_backend
+from ..data.pipeline import camera_frame_batch
+from .backends import Backend, QuantizedTorchBackend, get_backend
 from .config import SessionConfig
 
 SIMD_MULTIPLE = 4
@@ -49,10 +60,56 @@ class InferenceSession:
         self.backend_name = config.backend
         self.precision = config.precision
         self.device = resolve_device(config.device)
-        self.graph = (passes.optimize(graph, simd_multiple=SIMD_MULTIPLE)
+        # int8 quantizes whole channels: alignment would only add dead ones
+        self.simd_multiple = (1 if config.precision == "int8"
+                              else SIMD_MULTIPLE)
+        self.graph = (passes.optimize(graph, simd_multiple=self.simd_multiple)
                       if config.optimize else graph)
-        self._backend: Backend = get_backend(config.backend)(
-            self.graph, self.device)
+        self.qgraph = None
+        if config.precision == "int8":
+            self._init_int8()
+        else:
+            self._backend: Backend = get_backend(config.backend)(
+                self.graph, self.device)
+
+    def _init_int8(self) -> None:
+        """Calibrate (on this session's device) or take the provided
+        qparams, quantize, and build the int8 backend: the int8 reference
+        on the ``"torch"`` backend.  The kernel path has no int8 kernels,
+        so any other backend raises, as the JAX session refuses
+        ``"pallas"``."""
+        cfg = self.config
+        if cfg.backend != "torch":
+            raise ValueError(
+                f"precision='int8' supports backend 'torch', "
+                f"not {cfg.backend!r}")
+        cal = cfg.calibration
+        if cal.qparams is not None:
+            # externally-determined (e.g. QAT-exported) scales and
+            # zero-points: no calibration pass at all
+            self.qgraph = quantize_mod.quantize_from_qparams(
+                self.graph, cal.qparams)
+        else:
+            data = cal.data
+            method = cal.resolved_method(data_provided=data is not None)
+            if data is None:
+                data = self._default_calibration()
+            self.qgraph = quantize_mod.quantize(
+                self.graph, data, method=method, percentile=cal.percentile,
+                per_channel=cal.per_channel, device=self.device)
+        self._backend = QuantizedTorchBackend(self.qgraph, self.device)
+
+    def _default_calibration(self) -> np.ndarray:
+        """Representative frames for int8 calibration when the caller
+        supplies none: camera-like frames for image inputs (ranges
+        calibrated on unbounded noise cost the robot net its top-1
+        agreement), bounded uniform noise otherwise."""
+        in_shape = tuple(self.graph.input_shape)
+        n = self.config.calibration.samples
+        if len(in_shape) == 3:
+            return camera_frame_batch(n, in_shape, seed=0)
+        return np.random.default_rng(0).uniform(
+            -1.0, 1.0, size=(n,) + in_shape).astype(np.float32)
 
     @property
     def input_shape(self):
@@ -103,9 +160,17 @@ class InferenceSession:
 
     @property
     def info(self) -> dict:
-        return dict(
+        d = dict(
             backend=self.backend_name, precision=self.precision,
-            device=str(self.device), simd_multiple=SIMD_MULTIPLE,
+            device=str(self.device), simd_multiple=self.simd_multiple,
             input_shape=tuple(self.input_shape),
             output_shape=tuple(self.output_shape),
             config=self.config.to_dict())
+        if self.qgraph is not None:
+            d["quantized_layers"] = sorted(self.qgraph.weights)
+            d["input_qparams"] = (self.qgraph.input_qp.scale,
+                                  self.qgraph.input_qp.zero_point)
+            d["calibration_method"] = self.qgraph.method
+            if self.qgraph.method == "percentile":
+                d["calibration_percentile"] = self.qgraph.percentile
+        return d

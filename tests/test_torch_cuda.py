@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-CNN kernel path against the plain executor, and the LM session's kernel
-policy against its plain policy.
+CNN kernel path against the plain executor, the int8 reference against
+itself on the CPU, and the LM session's kernel policy against its plain
+policy.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -21,14 +22,18 @@ the bf16 flash kernel also within one bf16 rounding (2**-8 relative,
 1e-5 absolute) of the fp32 function of its inputs.  The CNN fixture switches TF32 off, since cuDNN's default keeps about
 three digits; ``test_torch_session_is_fp32_with_default_switches``
 leaves the switches at their defaults and shows the ``"torch"`` backend
-sets what it needs itself.
+sets what it needs itself.  The int8 reference is exact on the integer
+path, so its card output equals its CPU output on the same quantized
+graph bit for bit; a Softmax sink is held at rtol 1e-5 / atol 1e-6.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.cnn_paper import EXTRA_CNNS, PAPER_CNNS
-from repro_torch.core import passes, torch_exec
+from repro_torch.core import passes, quantize, torch_exec
+from repro_torch.core.graph import (Add, CNNGraph, Conv2D, Dense,
+                                    DepthwiseConv2D, Flatten, Input, MaxPool)
 from repro_torch.kernels import conv2d as conv_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import linear_scan as scan_mod
@@ -525,3 +530,107 @@ def test_lm_session_kernel_policy_matches_plain_on_the_card(cuda, arch):
     assert launched[0 if arch == "gemma3-4b" else 1] > 0
     np.testing.assert_array_equal(sessions[0].generate(prompts, 6),
                                   sessions[1].generate(prompts, 6))
+
+
+# ------------------------------------------------------------- int8 ----
+
+def _int8_kernel_zoo(seed=7) -> CNNGraph:
+    """The softmax-free net of ``tests/test_int8_kernels.py`` in the
+    port's graph classes: strided same-pad conv, channel counts 19 and
+    33, leaky/relu epilogues, a same-padded MaxPool, a two-input Add,
+    depthwise, two Dense tails."""
+    rng = np.random.default_rng(seed)
+
+    def conv(kh, kw, ci, co, **kw_args):
+        return Conv2D(weights=rng.normal(0, 0.5, (kh, kw, ci, co)).astype(
+            np.float32), bias=rng.normal(0, 0.1, (co,)).astype(np.float32),
+            **kw_args)
+
+    dw_w = rng.normal(0, 0.5, (3, 3, 12, 1)).astype(np.float32)
+    dw_b = rng.normal(0, 0.1, (12,)).astype(np.float32)
+    return CNNGraph([
+        Input(shape=(11, 9, 3), name="in"),
+        conv(3, 3, 3, 12, padding="same", activation="relu", name="c1"),
+        DepthwiseConv2D(weights=dw_w, bias=dw_b, padding="same",
+                        activation="leaky_relu", name="dw"),
+        Add(name="add", inputs=["dw", "c1"], activation="relu"),
+        conv(3, 3, 12, 19, strides=(2, 2), padding="same",
+             activation="leaky_relu", name="c2"),
+        MaxPool(size=(2, 2), padding="same", name="mp"),
+        conv(2, 2, 19, 33, padding="valid", name="c3"),
+        Flatten(name="fl"),
+        Dense(weights=rng.normal(0, 0.2, (2 * 2 * 33, 21)).astype(
+                  np.float32),
+              bias=rng.normal(0, 0.1, (21,)).astype(np.float32),
+              activation="relu", name="d1"),
+        Dense(weights=rng.normal(0, 0.2, (21, 10)).astype(np.float32),
+              bias=rng.normal(0, 0.1, (10,)).astype(np.float32),
+              name="d2"),
+    ])
+
+
+INT8_GRAPHS = {**NETS, "kernel_zoo": _int8_kernel_zoo}
+
+
+def _int8_card_and_cpu(cuda, name):
+    """One quantized graph (calibrated on the CPU) run on the card and
+    on the CPU, 16 frames."""
+    g = passes.optimize(INT8_GRAPHS[name](0 if name in NETS else 7),
+                        simd_multiple=1)
+    qg = quantize.quantize(g, _rnd(3, (16,) + tuple(g.input_shape)),
+                           device="cpu")
+    x = torch.from_numpy(_rnd(8, (16,) + tuple(g.input_shape)))
+    with torch.inference_mode():
+        cpu = torch_exec.forward_quantized(qg, x).numpy()
+        card = torch_exec.forward_quantized(qg, x.to(cuda))
+    assert card.device.type == "cuda"
+    return card.cpu().numpy(), cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["robot", "kernel_zoo"])
+def test_int8_forward_on_the_card_equals_the_cpu(cuda, name):
+    card, cpu = _int8_card_and_cpu(cuda, name)
+    np.testing.assert_array_equal(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ball", "pedestrian", "residual"])
+def test_int8_softmax_nets_on_the_card_match_the_cpu(cuda, name):
+    card, cpu = _int8_card_and_cpu(cuda, name)
+    np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_int8_accumulator_is_exact_at_wide_k(cuda):
+    """The float64 sum, rounded, equals an int64 sum on the CPU for a
+    3x3 convolution over 512 channels (K = 4,608 products of up to
+    255 * 127)."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(-255, 256, (2, 9, 11, 512))
+    w = rng.integers(-127, 128, (3, 3, 512, 16))
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want = sum(np.einsum("nhwc,ck->nhwk", xp[:, i:i + 9, j:j + 11], w[i, j])
+               for i in range(3) for j in range(3))
+    acc = torch_exec._int_acc(torch_exec._conv(
+        torch.from_numpy(x).double().to(cuda),
+        torch.from_numpy(w).double().to(cuda), None, (1, 1), (1, 1, 1, 1)))
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(acc.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_int8_session_on_the_card_equals_the_cpu_session(cuda):
+    """The default int8 session calibrates on the card; the CPU session
+    given the card's qparams computes the same frames bit for bit."""
+    from repro_torch.engine import InferenceSession, SessionConfig
+    sess = InferenceSession(NETS["robot"](0), config=SessionConfig(
+        backend="torch", precision="int8"))
+    assert sess.info["device"] == "cuda:0"
+    assert sess.qgraph.method == "percentile"
+    cpu = InferenceSession(NETS["robot"](0), config=SessionConfig(
+        backend="torch", precision="int8", device="cpu",
+        calibration={"qparams": {n: (qp.scale, qp.zero_point)
+                                 for n, qp in sess.qgraph.acts.items()}}))
+    x = _rnd(9, (8,) + tuple(sess.input_shape))
+    np.testing.assert_array_equal(sess.predict(x), cpu.predict(x))

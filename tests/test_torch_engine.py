@@ -62,8 +62,11 @@ def test_backends_registered_and_config_validated():
     with pytest.raises(ValueError, match="unknown backend"):
         InferenceSession(NETS["ball"](0), config=SessionConfig(
             backend="pallas", device="cpu"))
+    assert SessionConfig(precision="int8").precision == "int8"
+    with pytest.raises(ValueError, match="calibration method"):
+        SessionConfig(precision="int8", calibration={"method": "bogus"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SessionConfig(precision="int8")
+        SessionConfig(autotune=True)
     with pytest.raises(ValueError, match="precision"):
         SessionConfig(precision="fp16")
     with pytest.raises(RuntimeError):
