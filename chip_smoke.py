@@ -95,13 +95,40 @@ propagates and the script exits non-zero:
    tokens;
 12. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``:
    each result equals ``session.generate`` on the same prompts;
-13. the kernels line — per kernel: launches in phases 5-7 (CNN) or 11-12
+13. train_grad — the CUDA kernel wrappers refuse an input that requires
+   grad under grad mode (their kernels have no backward), and
+   ``flash_mha`` / ``local_mha``, the training path's attention with its
+   hand-written backward, give on the card the CPU's outputs and
+   dq/dk/dv (``tests/test_attention_vjp.py``'s cases plus head dims 80
+   and 256) at rtol 1e-4 / atol 1e-5;
+14. train_ball — ``trained_ball_classifier(150, seed=0)`` on the card:
+   its parameters after 5 steps equal the CPU's (rtol 1e-4 / atol 1e-5),
+   held-out accuracy at least 0.97, seconds per step, no kernel launched
+   while training; the trained net served through ``"cuda"`` (conv2d
+   and maxpool2d, launches counted) against ``"torch"`` at rtol 1e-4 /
+   atol 1e-5 on 2,000 frames; its int8 session at least float - 0.02;
+15. train_lm — lm-100m (the JAX launch script's model: 12 layers, d_model 768,
+   fp32) at batch 8 x 256: its first 3 train steps on the card against
+   the CPU's from the same weights (loss and grad norm at rtol 1e-4);
+   200 steps through ``repro_torch.launch.train.main`` (checkpoints every
+   100 in a temporary directory), the loss falling and no kernel
+   launched; then the train step alone: seconds per step and tokens/s
+   over 20 steps, peak memory, and the card's busy share and top kernels
+   over 10 profiled steps; then preempted at step 4 of 6 (batch 2 x 32,
+   checkpoints every 2) and resumed, every array of the final checkpoint
+   against a straight 6-step run at rtol 1e-5 / atol 1e-6;
+16. train_smoke — 2 train steps of the gemma3-4b, rwkv6-7b and
+   qwen2-vl-72b ``.smoke()`` configs with ``remat="full"`` (qwen2-vl with
+   ``grad_accum=2``), card against CPU: loss and grad norm at rtol 1e-4,
+   parameters as ``repro_torch.optim.parity`` holds them (rtol 1e-4 /
+   atol 1e-5 wherever the two devices' gradients agree to 10%);
+17. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-12
    (LM: the kernel policy's run in ``lm_main``, the server's in
-   ``lm_serve``), each counted from 0 and read as it ends, max error, and
-   the kernel's, plain version's, bound's and library's ms per robot
-   forward at batch 256 (maxpool2d's from the cold readings) or per LM
-   prefill;
-14. the last line — ``{"ok": true, "device": {...}}``.
+   ``lm_serve``) and 14 (the trained ball net served), each counted from
+   0 and read as it ends, max error, and the kernel's, plain version's,
+   bound's and library's ms per robot forward at batch 256 (maxpool2d's
+   from the cold readings) or per LM prefill;
+18. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -181,6 +208,27 @@ SCAN_CASES = [(1, 64, 2, 8, 16), (2, 128, 4, 16, 16), (1, 96, 1, 4, 8),
               (1, 40, 2, 5, 16), (1, 40, 3, 48, 64), (1, 33, 2, 128, 64),
               (2, 33, 2, 64, 80), (1, 33, 2, 16, 10), (2, 1, 2, 64, 64),
               (1, 1537, 2, 64, 64)]
+
+# (b, t, h, hkv, dh, causal, window, bq, bk): tests/test_attention_vjp.py's
+# flash cases plus head dims 80 and 256; then its local cases (b, t, h,
+# hkv, dh, window, bq) plus the same head dims
+TRAIN_FLASH_CASES = [
+    (2, 128, 4, 2, 32, True, None, 64, 64),
+    (1, 256, 8, 8, 16, True, None, 128, 64),
+    (2, 128, 4, 1, 32, False, None, 64, 64),
+    (1, 128, 4, 4, 16, True, 48, 64, 64),
+    (1, 128, 4, 2, 80, True, None, 64, 64),
+    (1, 128, 2, 1, 256, True, None, 64, 128)]
+TRAIN_LOCAL_CASES = [
+    (2, 256, 4, 2, 32, 64, 64), (1, 512, 2, 2, 16, 100, 128),
+    (1, 128, 4, 1, 32, 32, 32), (1, 128, 4, 2, 80, 32, 64),
+    (1, 128, 2, 1, 256, 48, 64)]
+# the JAX launch script's model and defaults: lm-100m in fp32, batch 8 x 256
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 200
+# the .smoke() configs trained card against CPU: local attention with
+# GQA, the chunked scan's gradient, M-RoPE positions (with two
+# microbatches); each with remat="full"
+TRAIN_SMOKE = (("gemma3-4b", 1), ("rwkv6-7b", 1), ("qwen2-vl-72b", 2))
 
 
 def emit(phase: str, **fields) -> None:
@@ -335,6 +383,328 @@ def pool_layers(graph):
     smap = graph.shape_map()
     return [(smap[l.inputs[0]], l) for l in graph.layers
             if isinstance(l, MaxPool) and l.padding == "valid"]
+
+
+def train_phases(torch, np, counts, reset_counts, launches) -> None:
+    """Phases 13-16: the training slice on the card (see the module
+    docstring).  ``launches`` gains the trained ball net's serving run."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs.cnn_paper import trained_ball_classifier
+    from repro_torch.configs.lm_archs import ARCHS
+    from repro_torch.core.tree import (leaves, leaves_with_paths, tree_map,
+                                       unflatten)
+    from repro_torch.data.pipeline import (TokenStreamConfig,
+                                           ball_image_batch, token_batch)
+    from repro_torch.engine import (CalibrationConfig, InferenceSession,
+                                    SessionConfig)
+    from repro_torch.kernels import conv2d as conv_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import linear_scan as scan_mod
+    from repro_torch.kernels import maxpool2d as pool_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import flash_mha, local_mha, lm
+    from repro_torch.models.stack import init_params
+    from repro_torch.optim import AdamW, parity, warmup_cosine
+
+    dev = torch.device("cuda:0")
+    cpu = torch.device("cpu")
+    zero = {name: 0 for name in counts()}
+
+    # -- 13. train_grad --------------------------------------------------
+    x = torch.rand(1, 8, 8, 4, device=dev, requires_grad=True)
+    w, b = torch.rand(3, 3, 4, 4, device=dev), torch.zeros(4, device=dev)
+    q = torch.rand(1, 2, 8, 32, device=dev, requires_grad=True)
+    s = torch.rand(1, 8, 2, 4, device=dev, requires_grad=True)
+    s0 = torch.zeros(1, 2, 4, 4, device=dev)
+    refused = {}
+    for name, call in (
+            ("conv2d", lambda: conv_mod.conv2d_cuda(x, w, b)),
+            ("maxpool2d", lambda: pool_mod.maxpool2d_cuda(x)),
+            ("flash_attention",
+             lambda: flash_mod.flash_attention_cuda(q, q, q)),
+            ("linear_scan",
+             lambda: scan_mod.linear_scan_cuda(s, s, s, s, s0))):
+        try:
+            call()
+        except RuntimeError as e:  # the repair: no gradient through a kernel
+            refused[name] = str(e)
+        if name not in refused or "flash_jax" not in refused[name]:
+            raise AssertionError(f"{name}: no refusal under grad")
+    rng = np.random.default_rng(7)
+
+    def attn_run(fn, arrays, do, device):
+        ts = [torch.from_numpy(a).to(device).requires_grad_()
+              for a in arrays]
+        out = fn(*ts)
+        out.backward(torch.from_numpy(do).to(device))
+        return [a.detach().cpu() for a in [out] + [t.grad for t in ts]]
+
+    attn_err = 0.0
+    for case in TRAIN_FLASH_CASES + TRAIN_LOCAL_CASES:
+        if len(case) == 9:
+            b_, t, h, hkv, dh, causal, window, bq, bk = case
+
+            def fn(q_, k_, v_, c=causal, wnd=window, bq=bq, bk=bk):
+                return flash_mha(q_, k_, v_, c, wnd, None, bq, bk)
+        else:
+            b_, t, h, hkv, dh, window, bq = case
+
+            def fn(q_, k_, v_, wnd=window, bq=bq):
+                return local_mha(q_, k_, v_, wnd, None, bq)
+        arrays = [(rng.normal(size=sh) * 0.5).astype(np.float32)
+                  for sh in ((b_, t, h, dh), (b_, t, hkv, dh),
+                             (b_, t, hkv, dh))]
+        do = (rng.normal(size=(b_, t, h, dh)) * 0.5).astype(np.float32)
+        for got, want, what in zip(attn_run(fn, arrays, do, dev),
+                                   attn_run(fn, arrays, do, cpu),
+                                   ("o", "dq", "dk", "dv")):
+            attn_err = max(attn_err, compare(got, want, 1e-4, 1e-5,
+                                             f"train_grad {case} {what}"))
+    emit("train_grad", refused=sorted(refused),
+         message=refused["flash_attention"],
+         flash_cases=len(TRAIN_FLASH_CASES),
+         local_cases=len(TRAIN_LOCAL_CASES), rtol=1e-4, atol=1e-5,
+         max_abs_err=attn_err)
+
+    # -- 14. train_ball --------------------------------------------------
+    five = [trained_ball_classifier(5, seed=0, eval_n=200, device=d)[0]
+            for d in (dev, cpu)]
+    ball_err = 0.0
+    for lc, lp in zip(five[0].layers, five[1].layers):
+        if getattr(lc, "weights", None) is not None:
+            for a, b_ in ((lc.weights, lp.weights), (lc.bias, lp.bias)):
+                ball_err = max(ball_err, compare(
+                    torch.from_numpy(a), torch.from_numpy(b_), 1e-4, 1e-5,
+                    f"ball trainer after 5 steps, {lc.name}"))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, acc = trained_ball_classifier(150, seed=0)
+    torch.cuda.synchronize()
+    ball_s = time.perf_counter() - t0
+    ball_launches = counts()
+    if ball_launches != zero:
+        raise AssertionError(f"the ball trainer launched {ball_launches}")
+    if not acc >= 0.97:
+        raise AssertionError(f"trained ball net accuracy {acc} < 0.97")
+    xs, ys = ball_image_batch(2000, seed=99, step=0)
+    plain = InferenceSession(trained, config=SessionConfig(backend="torch"))
+    want = plain.predict(xs)
+    reset_counts()
+    sess = InferenceSession(trained, config=SessionConfig(backend="cuda"))
+    got = sess.predict(xs)
+    torch.cuda.synchronize()
+    launches["train_ball serve"] = counts()
+    serve_err = compare(torch.from_numpy(got), torch.from_numpy(want), 1e-4,
+                        1e-5, "trained ball net, cuda vs torch")
+
+    def top1(p):
+        return np.argmax(p.reshape(len(p), -1), -1)
+
+    qsess = InferenceSession(trained, config=SessionConfig(
+        backend="torch", precision="int8",
+        calibration=CalibrationConfig(data=xs[:64], method="percentile")))
+    facc = float((top1(got) == ys).mean())
+    qacc = float((top1(qsess.predict(xs)) == ys).mean())
+    if not qacc >= facc - 0.02:
+        raise AssertionError(f"int8 accuracy {qacc} < float {facc} - 0.02")
+    emit("train_ball", steps=150, batch=64, seconds=ball_s,
+         seconds_per_step=ball_s / 150, accuracy=acc,
+         five_steps_vs_cpu_max_abs_err=ball_err, train_launches=ball_launches,
+         serve_frames=len(xs), serve_max_abs_err=serve_err,
+         serve_launches=launches["train_ball serve"], float_accuracy=facc,
+         int8_accuracy=qacc,
+         int8_top1_agreement=float((top1(qsess.predict(xs))
+                                    == top1(got)).mean()))
+
+    # -- 15. train_lm ----------------------------------------------------
+    cfg = train_mod.LM_100M
+    tc = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+    host_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = AdamW(learning_rate=warmup_cosine(3e-4, 20, TRAIN_STEPS))
+    step_fn = lm.make_train_step(cfg, opt)
+
+    def start_state(device):
+        p = tree_map(lambda a: a.to(device, copy=True), host_params)
+        return (p, opt.init(p),
+                torch.zeros((), dtype=torch.int32, device=device))
+
+    def batch_on(i, device):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in token_batch(tc, i).items()}
+
+    three = []
+    for d in (dev, cpu):
+        st, ms = start_state(d), []
+        for i in range(3):
+            st, m = step_fn(st, batch_on(i, d))
+            ms.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        three.append(ms)
+        del st
+    for mc, mp in zip(*three):
+        for k in mc:
+            if abs(mc[k] - mp[k]) > 1e-4 * abs(mp[k]):
+                raise AssertionError(f"lm-100m {k}: card {mc[k]} vs cpu "
+                                     f"{mp[k]}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_mod.main(
+            ["--arch", "lm-100m", "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-every", "100",
+             "--log-every", "50", "--ckpt-dir", f"{tmp}/lm", "--device",
+             "cuda"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        lm_launches = counts()
+        if lm_launches != zero:
+            raise AssertionError(f"lm-100m training launched {lm_launches}")
+        if not out["last_loss"] < out["first_loss"]:
+            raise AssertionError(f"lm-100m loss did not fall: {out}")
+        if latest_step(f"{tmp}/lm") != TRAIN_STEPS:
+            raise AssertionError("no final checkpoint")
+
+    # the step alone: 5 warm-up steps, 20 timed, 10 profiled
+    st = start_state(dev)
+    batches = [batch_on(i, dev) for i in range(35)]
+    for i in range(5):
+        st, _ = step_fn(st, batches[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(5, 25):
+        st, m = step_fn(st, batches[i])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 20
+    peak = torch.cuda.max_memory_allocated()
+    holder = [st]
+
+    def ten():
+        for i in range(25, 35):
+            holder[0], _ = step_fn(holder[0], batches[i])
+    busy_ms, wall_ms, top = device_busy(torch, ten, top=10)
+    del st, holder, batches
+    torch.cuda.empty_cache()
+    # the attention of one layer, forward and the hand-written backward,
+    # at the step's shape: its share of the step
+    qkv = [torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim,
+                       device=dev, requires_grad=True) for _ in range(3)]
+    do = torch.randn_like(qkv[0])
+
+    def attn_step():
+        torch.autograd.backward(flash_mha(*qkv, True, None, None, 512, 512),
+                                do)
+    attn_ms = events_ms(torch, attn_step, trials=10)
+
+    # preempt at 4 and resume, against a straight 6-step run
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--arch", "lm-100m", "--steps", "6", "--batch", "2",
+                  "--seq", "32", "--ckpt-every", "2", "--log-every", "1",
+                  "--device", "cuda"]
+        try:
+            train_mod.main(common + ["--ckpt-dir", f"{tmp}/a",
+                                     "--preempt-at", "4"])
+        except SystemExit as e:  # the simulated preemption
+            if e.code != 17:
+                raise
+        else:
+            raise AssertionError("--preempt-at 4 did not exit")
+        if latest_step(f"{tmp}/a") != 4:
+            raise AssertionError("no checkpoint at the preemption")
+        train_mod.main(common + ["--ckpt-dir", f"{tmp}/a"])
+        train_mod.main(common + ["--ckpt-dir", f"{tmp}/b"])
+        za, zb = (np.load(f"{tmp}/{d}/step_6/arrays.npz") for d in "ab")
+        if sorted(za.files) != sorted(zb.files):
+            raise AssertionError("resumed and straight keys differ")
+        resume_err = max(compare(torch.from_numpy(za[k]),
+                                 torch.from_numpy(zb[k]), 1e-5, 1e-6,
+                                 f"resumed vs straight {k}")
+                         for k in za.files)
+        resume_equal = all(np.array_equal(za[k], zb[k]) for k in za.files)
+        n_arrays = len(za.files)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit("train_lm", arch=cfg.name, params=out["params"], dtype=cfg.dtype,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+         first_loss=out["first_loss"], last_loss=out["last_loss"],
+         main_seconds=run_s, main_seconds_per_step=run_s / TRAIN_STEPS,
+         seconds_per_step=step_s, tokens_per_s=tokens / step_s,
+         peak_memory_gb=peak / 1e9,
+         attention_fwd_bwd_ms_per_layer=attn_ms,
+         attention_share_of_step=attn_ms * cfg.n_layers / (step_s * 1e3),
+         profiled_steps=10,
+         profiled_wall_ms=wall_ms, profiled_device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / wall_ms, top_device_kernels=top,
+         first_steps_card_vs_cpu={"card": three[0], "cpu": three[1]},
+         launches=lm_launches, resume_arrays=n_arrays,
+         resume_max_abs_err=resume_err, resume_bit_equal=resume_equal)
+
+    # -- 16. train_smoke -------------------------------------------------
+    smoke = {}
+    for arch, accum in TRAIN_SMOKE:
+        scfg = dataclasses.replace(ARCHS[arch].smoke(), remat="full",
+                                   grad_accum=accum)
+        sopt = AdamW(learning_rate=warmup_cosine(1e-3, 1, 10))
+        sstep = lm.make_train_step(scfg, sopt)
+        host = init_params(scfg, torch.Generator().manual_seed(1), "cpu")
+        brng = np.random.default_rng(3)
+        bs = []
+        for _ in range(2):
+            t = 80 if "R" in scfg.pattern else 32
+            nb = {"tokens": brng.integers(0, scfg.vocab_size, (2, t)),
+                  "labels": brng.integers(0, scfg.vocab_size, (2, t))}
+            if scfg.mrope_sections is not None:
+                nb["positions3"] = (np.arange(t)[None, None]
+                                    + brng.integers(0, 3, (3, 2, 1)))
+            bs.append(nb)
+        # both devices in lockstep from one set of weights; before each
+        # step, the elements where Adam amplifies the two devices'
+        # gradient difference (optim.parity) are marked from the CPU's
+        # state
+        marks, states, ms = {}, [], ([], [])
+        for d in (dev, cpu):
+            p = tree_map(lambda a, d=d: a.to(d, copy=True), host)
+            states.append((p, sopt.init(p),
+                           torch.zeros((), dtype=torch.int32, device=d)))
+        gcfg = dataclasses.replace(scfg, grad_accum=1)
+        grad_err = 0.0
+        for n_step, nb in enumerate(bs):
+            gs, before = [], tree_map(lambda a: a.clone(), states[1][:2])
+            for i, d in enumerate((dev, cpu)):
+                tb = {k: torch.from_numpy(v).to(d) for k, v in nb.items()}
+                live = [a.detach().requires_grad_()
+                        for a in leaves(states[i][0])]
+                loss, _ = lm.loss_fn(unflatten(states[i][0], live), gcfg, tb)
+                gs.append(unflatten(states[i][0], [
+                    g.cpu() for g in torch.autograd.grad(loss, live)]))
+                states[i], m = sstep(states[i], tb)
+                ms[i].append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            for (k, a), (_, b_) in zip(leaves_with_paths(gs[0]),
+                                       leaves_with_paths(gs[1])):
+                if n_step == 0:  # from the same weights
+                    grad_err = max(grad_err, compare(
+                        a, b_, 1e-4, 1e-5, f"{arch} smoke grad {k}"))
+            parity.mark_amplified(sopt, before[1], before[0], gs[0], gs[1],
+                                  marks, 1e-5)
+        runs = [(ms[i], {k: v.cpu().numpy()
+                         for k, v in leaves_with_paths(states[i][0])})
+                for i in range(2)]
+        for mc, mp in zip(runs[0][0], runs[1][0]):
+            for k in mc:
+                if abs(mc[k] - mp[k]) > 1e-5 + 1e-4 * abs(mp[k]):
+                    raise AssertionError(f"{arch} smoke {k}: card {mc[k]} "
+                                         f"vs cpu {mp[k]}")
+        held = parity.hold_params(
+            runs[0][1], runs[1][1], marks,
+            parity.adam_step_bound(2e-3, 0.1, 1.0), 1e-4, 1e-5)
+        smoke[arch] = dict(remat=scfg.remat, grad_accum=accum,
+                           metrics=runs[0][0], grad_max_abs_err=grad_err,
+                           **held)
+    emit("train_smoke", steps=2, rtol=1e-4, atol=1e-5, archs=smoke)
 
 
 def main() -> int:
@@ -1158,7 +1528,10 @@ def main() -> int:
         lm_phases(arch)
         torch.cuda.empty_cache()
 
-    # -- 13. the kernels line --------------------------------------------
+    # -- 13-16. training ------------------------------------------------
+    train_phases(torch, np, counts, reset_counts, launches)
+
+    # -- 17. the kernels line --------------------------------------------
     for phase, got in launches.items():
         want = ([lm_kernel_of[phase.split()[1]]] if phase.startswith("lm_")
                 else ["conv2d", "maxpool2d"])

@@ -3,8 +3,9 @@ DAG, PyTorch port.
 
 The port's own copy of the JAX package's ``configs/cnn_paper.py``
 builders: the same numpy RNG calls in the same order, so every weight
-is bit-identical to the reference's for the same seed.  The trained
-ball classifier waits for the port's training slice.
+is bit-identical to the reference's for the same seed, and its ball
+trainer (:func:`trained_ball_classifier`), which trains on the caller's
+device, the card by default.
 """
 from __future__ import annotations
 
@@ -133,6 +134,59 @@ def residual_cnn(seed: int = 0) -> CNNGraph:
         _conv(r, 1, 1, 8, 4, padding="valid", name="head"),
         Softmax(name="probs"),
     ])
+
+
+def trained_ball_classifier(steps: int = 150, *, seed: int = 0,
+                            learning_rate: float = 3e-3, batch: int = 64,
+                            eval_n: int = 2000, log=None, device=None):
+    """The Table-I ball net *trained* on the synthetic ball dataset.
+
+    The reference's trainer step for step: AdamW (no weight decay) on
+    the log-softmax NLL of ``logits[:, 0, 0, :]``, the batches
+    ``ball_image_batch(batch, seed=0, step=i)``, plain
+    :func:`~repro_torch.core.torch_exec.forward` convolutions through
+    autograd (the reference trains through XLA convolutions, not the
+    conv2d kernel), on ``device`` (the card unless the caller names
+    another; its convolutions in full fp32).  Deterministic in
+    ``(steps, seed)``.  Returns ``(graph, accuracy)`` with the trained
+    weights inserted and the accuracy on ``ball_image_batch(eval_n,
+    seed=99)``."""
+    import torch
+
+    from repro_torch.core import torch_exec
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import ball_image_batch
+    from repro_torch.optim import AdamW
+
+    dev = torch_exec.resolve_device(device)
+    torch_exec.use_fp32_convolutions(dev)
+    graph = ball_classifier(seed=seed)
+    params = torch_exec.extract_params(graph, dev)
+    opt = AdamW(learning_rate=learning_rate, weight_decay=0.0)
+    opt_state = opt.init(params)
+
+    def logits(p, x):
+        return torch_exec.forward_with_params(graph, p, x)[:, 0, 0, :]
+
+    for i in range(steps):
+        xs, ys = ball_image_batch(batch, seed=0, step=i)
+        x = torch.from_numpy(xs).to(dev)
+        y = torch.from_numpy(ys).to(dev).long()
+        p = tree_map(lambda a: a.detach().requires_grad_(), params)
+        logp = torch.log_softmax(logits(p, x), dim=-1)
+        loss = -torch.gather(logp, 1, y[:, None]).mean()
+        loss.backward()
+        grads = tree_map(lambda a: a.grad, p)
+        up, opt_state = opt.update(grads, opt_state, params)
+        params = tree_map(lambda a, u: a + u, params, up)
+        if log is not None and (i + 1) % 50 == 0:
+            log(f"  step {i + 1}: loss {float(loss.detach()):.4f}")
+
+    xs, ys = ball_image_batch(eval_n, seed=99, step=0)
+    with torch.no_grad():
+        pred = logits(params, torch.from_numpy(xs).to(dev)).argmax(-1)
+    acc = float((pred.cpu() == torch.from_numpy(ys)).float().mean())
+    return torch_exec.insert_params(graph, params), acc
 
 
 PAPER_CNNS = {

@@ -102,9 +102,9 @@ class LMConfig:
     shape, fp32).  ``attn_variant`` / ``scan_variant`` pin the
     :class:`~repro_torch.models.kernel_policy.KernelPolicy` axes; axes
     left ``None`` take the port's default, the kernels.  ``block_q`` /
-    ``block_k`` are the TPU kernel's tiles, kept for the round trip: the
-    CUDA kernel's tiles are fixed and masked at the ragged edge, so they
-    change nothing in the port.
+    ``block_k`` pin the policy's tiles of ``"flash_jax"``; the CUDA
+    kernel's tiles are fixed and masked at the ragged edge, so
+    ``"flash_pallas"`` ignores them.
     ``mesh_shape`` is not ported yet."""
 
     arch: str = "gemma3-4b"

@@ -57,7 +57,8 @@ class LMSession:
         model_cfg = ARCHS[lm.arch]
         self.model_cfg = model_cfg.smoke() if lm.smoke else model_cfg
         pins = {axis: value for axis, value in (
-            ("attention", lm.attn_variant), ("scan", lm.scan_variant))
+            ("attention", lm.attn_variant), ("scan", lm.scan_variant),
+            ("block_q", lm.block_q), ("block_k", lm.block_k))
             if value is not None}
         policy = DEFAULT_KERNELS._replace(**pins).validate()
         self._backend: LMBackend = backend_cls(

@@ -133,6 +133,22 @@ def kernel_library() -> ctypes.CDLL:
     return _library
 
 
+def check_no_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` where autograd would record ``kernel``'s
+    call: grad mode on and an input that requires grad.  The CUDA kernels
+    have no backward, so their output would carry no ``grad_fn`` and the
+    loss would train with these inputs silently cut off from it.  Serving
+    runs under ``no_grad`` / ``inference_mode``, or on tensors that
+    require no grad, and never meets this."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            f"requires grad under grad mode; train through the "
+            f"differentiable policy KernelPolicy(\"flash_jax\", "
+            f"\"chunked\") (repro_torch.models.TRAIN_KERNELS), or call "
+            f"the kernel under torch.no_grad()")
+
+
 def check_operand(t: torch.Tensor, name: str, ndim: int, dtypes,
                   device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of the given rank,

@@ -36,7 +36,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.graph import _conv_pads
-from .build import check_launch, check_operand, current_stream, kernel_library
+from .build import (check_launch, check_no_grad, check_operand,
+                    current_stream, kernel_library)
 
 ACTIVATIONS = {None: 0, "relu": 1, "leaky_relu": 2}
 DTYPES = (torch.float32, torch.bfloat16)
@@ -318,6 +319,7 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     """x (N,H,W,CI) fp32|bf16, w (KH,KW,CI,CO) in x's type, b (CO,) fp32,
     all contiguous on one CUDA device.  Launches on the current stream."""
     global launches
+    check_no_grad("conv2d", x, w, b)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r}")
     if padding not in ("same", "valid"):

@@ -33,7 +33,8 @@ from typing import Optional
 
 import torch
 
-from .build import check_launch, current_stream, kernel_library
+from .build import (check_launch, check_no_grad, current_stream,
+                    kernel_library)
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)  # the archs' and the tests' dims
@@ -75,6 +76,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device; Hq % Hkv == 0, D in :data:`HEAD_DIMS`.  Launches on the
     current stream."""
     global launches
+    check_no_grad("flash_attention", q, k, v)
     _check(q, "q", None, None)
     _check(k, "k", q.dtype, q.device)
     _check(v, "v", q.dtype, q.device)

@@ -20,7 +20,8 @@ from typing import Tuple
 
 import torch
 
-from .build import check_launch, check_operand, current_stream, kernel_library
+from .build import (check_launch, check_no_grad, check_operand,
+                    current_stream, kernel_library)
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE_DIM = 128  # N: 4 lanes of a state column keep 32 rows each
@@ -37,6 +38,7 @@ def linear_scan_cuda(decay: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :data:`MAX_STATE_DIM`.  Returns ``(y (B,T,H,M) in v's type,
     final state (B,H,N,M) fp32)``; launches on the current stream."""
     global launches
+    check_no_grad("linear_scan", decay, k, v, r, s0)
     check_operand(v, "v", 4, DTYPES)
     for name, t in (("decay", decay), ("k", k), ("r", r)):
         check_operand(t, name, 4, (v.dtype,), v.device)

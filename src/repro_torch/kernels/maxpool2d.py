@@ -27,7 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import check_launch, check_operand, current_stream, kernel_library
+from .build import (check_launch, check_no_grad, check_operand,
+                    current_stream, kernel_library)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -145,6 +146,7 @@ def maxpool2d_cuda(x: torch.Tensor, *, size: Tuple[int, int] = (2, 2),
     """x (N,H,W,C) fp32|bf16, contiguous on a CUDA device.  Launches on
     the current stream."""
     global launches
+    check_no_grad("maxpool2d", x)
     check_operand(x, "x", 4, DTYPES)
     n, h, w, c = x.shape
     kh, kw = (int(s) for s in size)

@@ -1,8 +1,13 @@
-"""LM-level API in PyTorch (the serving half of the JAX package's
-``models/lm.py``): embedding, unembedding, forward, the prefill and
-decode steps, parameter counting, and :func:`from_jax_params`, which
-carries a JAX ``init_params`` tree across.  The loss and the train step
-wait for the training slice (ROADMAP Queue 1, item 10).
+"""LM-level API in PyTorch (the port of the JAX package's
+``models/lm.py``): embedding, unembedding, forward, the loss, the train,
+eval, prefill and decode steps, parameter counting, and
+:func:`from_jax_params` / :func:`from_jax_train_state`, which carry a
+JAX parameter tree or train state across.
+
+Training runs through :data:`~repro_torch.models.kernel_policy.TRAIN_KERNELS`
+(``"flash_jax"`` attention with its hand-written backward, the
+``"chunked"`` scan); the CUDA kernels of the serving default have no
+backward and raise under autograd.
 """
 from __future__ import annotations
 
@@ -14,7 +19,9 @@ import torch
 
 from .config import ModelConfig
 from .layers import rms_norm
-from .kernel_policy import DEFAULT_KERNELS, KernelPolicy
+from ..core.tree import leaves, tree_map, unflatten
+from ..optim.adamw import AdamWState, global_norm
+from .kernel_policy import DEFAULT_KERNELS, TRAIN_KERNELS, KernelPolicy
 from .stack import (apply_stack, check_supported, dtype_of, init_cache,
                     init_params)
 
@@ -75,6 +82,91 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
                                          cfg.norm_eps))
 
 
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any],
+            kernels: KernelPolicy = TRAIN_KERNELS, z_loss: float = 1e-4):
+    """Next-token cross entropy on ``batch["labels"]`` (B, T), averaged
+    over ``batch["mask"]`` (all ones when absent), plus the z-loss
+    ``z_loss * mean(logsumexp^2)``; fp32 throughout.  Returns
+    ``(loss, {"xent", "z_loss"})``."""
+    logits = forward(params, cfg, batch, kernels)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    xent = (nll * mask).sum() / denom
+    zl = z_loss * ((lse ** 2) * mask).sum() / denom
+    return xent + zl, {"xent": xent, "z_loss": zl}
+
+
+def _split(batch: Dict[str, torch.Tensor], k: int):
+    """The batch as ``k`` microbatches along the batch dim (dim 1 of
+    ``positions3``, which is (3, B, T))."""
+    def part(key, a, i):
+        if key == "positions3":
+            return a.reshape(a.shape[0], k, a.shape[1] // k,
+                             *a.shape[2:])[:, i]
+        return a.reshape((k, a.shape[0] // k) + a.shape[1:])[i]
+    return [{key: part(key, a, i) for key, a in batch.items()}
+            for i in range(k)]
+
+
+def make_train_step(cfg: ModelConfig, optimizer,
+                    kernels: KernelPolicy = TRAIN_KERNELS):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; state is
+    ``(params, opt_state, step)``.  The parameters are updated in place
+    (``p.copy_((p + u).to(p.dtype))``, without autograd), so views of
+    them stay valid; the caller's tensors need not require grad.
+    ``cfg.grad_accum`` K > 1 splits the batch into K microbatches, sums
+    their grads in fp32 and divides by K, and averages the loss and its
+    parts, as the reference's scan over microbatches does."""
+
+    def grads_of(params, batch):
+        live = [p.detach().requires_grad_() for p in leaves(params)]
+        loss, aux = loss_fn(unflatten(params, live), cfg, batch, kernels)
+        gs = torch.autograd.grad(loss, live, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(live, gs)]
+        return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+                unflatten(params, gs))
+
+    def train_step(state, batch):
+        params, opt_state, step = state
+        k = cfg.grad_accum
+        if k > 1:
+            gsum, lsum, auxs = None, 0.0, []
+            for micro in _split(batch, k):
+                loss, aux, g = grads_of(params, micro)
+                g = tree_map(lambda x: x.float(), g)
+                gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+                lsum = lsum + loss
+                auxs.append(aux)
+            grads = tree_map(lambda x: x / k, gsum)
+            loss = lsum / k
+            aux = {key: torch.stack([a[key] for a in auxs]).mean()
+                   for key in auxs[0]}
+        else:
+            loss, aux, grads = grads_of(params, batch)
+        gnorm = global_norm(grads)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        with torch.no_grad():
+            tree_map(lambda p, u: p.copy_((p + u).to(p.dtype)), params,
+                     updates)
+        metrics = {"loss": loss, **aux, "grad_norm": gnorm}
+        return (params, opt_state, step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, kernels: KernelPolicy = TRAIN_KERNELS):
+    def eval_step(params, batch):
+        with torch.no_grad():
+            loss, aux = loss_fn(params, cfg, batch, kernels)
+        return {"loss": loss, **aux}
+    return eval_step
+
+
 def make_prefill_step(cfg: ModelConfig, max_len: int,
                       kernels: KernelPolicy = DEFAULT_KERNELS):
     """prefill(params, batch) -> (last_logits (B,V), caches, next_pos)."""
@@ -116,19 +208,18 @@ def make_decode_step(cfg: ModelConfig,
 
 def param_count(cfg: ModelConfig) -> int:
     """Exact parameter count from the shapes alone (the meta device)."""
-    return sum(math.prod(t.shape) for t in _leaves(init_params(
+    return sum(math.prod(t.shape) for t in leaves(init_params(
         cfg, device="meta")))
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: shared + top-k routed only)."""
+    n = param_count(cfg)
+    if not cfg.n_experts:
+        return n
+    fe = cfg.moe_d_ff or cfg.d_ff
+    per_expert = 3 * cfg.d_model * fe
+    return n - (cfg.n_experts - cfg.top_k) * per_expert * cfg.n_layers
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -166,3 +257,30 @@ def from_jax_params(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
         return t
 
     return conv(want, tree, "params")
+
+
+def from_jax_train_state(cfg: ModelConfig, state, device="cpu"):
+    """The JAX package's train state ``(params, AdamWState(step, mu, nu),
+    step)``, leaves as numpy arrays, as the port's on ``device``: the
+    parameters through :func:`from_jax_params`, the fp32 moments as
+    trees of the parameters' shapes, the steps as int32 scalars, all bit
+    for bit."""
+    params, opt_state, step = state
+    step_t, mu, nu = opt_state
+    params = from_jax_params(cfg, params, device)
+
+    def moment(p, a):
+        t = _to_tensor(a, device)
+        if t.shape != p.shape or t.dtype != torch.float32:
+            raise ValueError(f"moment {tuple(t.shape)} {t.dtype} != "
+                             f"{tuple(p.shape)} float32")
+        return t
+
+    def scalar(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=device)
+
+    return (params, AdamWState(step=scalar(step_t),
+                               mu=tree_map(moment, params, mu),
+                               nu=tree_map(moment, params, nu)),
+            scalar(step))

@@ -11,7 +11,9 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from .kernel_policy import fit_block
 from .layers import group_norm_heads, linear
 
 
@@ -27,9 +29,22 @@ def _token_shift(x, prev):
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
 
 
+def _steps(rf, kf, vf, decay, u, s):
+    """The plain RWKV6 recurrence over (B,T,H,N) inputs from state ``s``:
+    ``y_t = r_t (S + u k_t^T v_t)``, ``S = diag(decay_t) S + k_t^T v_t``.
+    Returns (y (B,T,H,N), final state)."""
+    ys = []
+    for i in range(rf.shape[1]):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]       # (B,H,N,N)
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, i],
+                               s + u[None, :, :, None] * kv))
+        s = decay[:, i][..., None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
 def rwkv6_time_mix(x, p, *, head_dim: int,
                    state: Optional[RWKVState] = None,
-                   scan: str = "linear_scan"):
+                   scan: str = "linear_scan", chunk: int = 64):
     """RWKV6 time mix with data-dependent per-channel decay.  Returns
     ``(out, final wkv state, last token)``.
 
@@ -40,7 +55,10 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
     after step t is then S_{t-1} — and the separable bonus
     ``r.(u * k_t v_t^T) = (sum_n r u k) v_t`` and the true final state
     are one elementwise step each outside it.  ``scan="chunked"`` and
-    single-step decode (T == 1) run the plain step loop."""
+    single-step decode (T == 1) run the plain step loop; under grad mode
+    that loop runs as checkpointed chunks of ``fit_block(T, chunk)``
+    steps, as the reference's scan of rematerialized chunks does (the
+    same numbers, with O(T / chunk) saved states)."""
     b, t, d = x.shape
     n = head_dim
     h = d // n
@@ -75,15 +93,21 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
         y = y + (rf * u * kf).sum(-1, keepdim=True) * vf
         s_final = (decay[:, -1][..., None] * s_prev
                    + kf[:, -1][..., None] * vf[:, -1][..., None, :])
+    elif torch.is_grad_enabled() and t > 1:
+        # checkpointed chunks: the backward keeps one (B,H,N,N) state per
+        # chunk, not one per step, and replays a chunk's steps
+        c = fit_block(t, chunk)
+        ys, s_final = [], s0
+        for c0 in range(0, t, c):
+            sl = slice(c0, c0 + c)
+            args = (rf[:, sl], kf[:, sl], vf[:, sl], decay[:, sl], u,
+                    s_final)
+            y_c, s_final = (checkpoint(_steps, *args, use_reentrant=False)
+                            if c < t else _steps(*args))
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)
     else:
-        s_final = s0
-        ys = []
-        for i in range(t):
-            kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]   # (B,H,N,N)
-            ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, i],
-                                   s_final + u[None, :, :, None] * kv))
-            s_final = decay[:, i][..., None] * s_final + kv
-        y = torch.stack(ys, dim=1)                             # (B,T,H,N)
+        y, s_final = _steps(rf, kf, vf, decay, u, s0)
     y = group_norm_heads(y, p["ln_x"].reshape(h, n)[None, None])
     y = y.reshape(b, t, d).to(x.dtype) * g
     return linear(y, p["w_o"]), s_final, x[:, -1]

@@ -24,8 +24,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops, ref
+from .attention_vjp import flash_mha, local_mha
 from .config import ModelConfig
 from .kernel_policy import DEFAULT_KERNELS, KernelPolicy
 from .layers import (
@@ -178,10 +180,16 @@ def _apply_rope(cfg, q, k, positions, pos3):
 
 def _prefill_attention(q, k, v, cfg: ModelConfig, kind: str,
                        pol: KernelPolicy):
-    """Prefill attention over the policy's variant axis.  q/k/v are
-    (B, T, H, Dh); the kernels speak (B, H, T, Dh), so they get
-    transposed views (no copy: the CUDA kernel takes strides)."""
+    """Prefill / train attention over the policy's variant axis.  q/k/v
+    are (B, T, H, Dh), as ``"flash_jax"`` takes them; the kernel and the
+    dense reference speak (B, H, T, Dh), so they get transposed views (no
+    copy: the CUDA kernel takes strides)."""
     window = cfg.window if kind == "L" and cfg.window is not None else None
+    if pol.attention == "flash_jax":
+        if window is not None:
+            return local_mha(q, k, v, window, None, min(pol.block_q, 256))
+        return flash_mha(q, k, v, cfg.causal, None, None, pol.block_q,
+                         pol.block_k)
     fn = (ops.flash_attention if pol.attention == "flash_pallas"
           else ref.attention_ref)  # a validated policy: "reference"
     o = fn(*(a.transpose(1, 2) for a in (q, k, v)), causal=cfg.causal,
@@ -271,10 +279,19 @@ def apply_stack(x, params, cfg: ModelConfig,
                 caches=None, pos=None, pos3=None):
     """Run the full layer stack, prefill attention and the RWKV scan
     through ``kernels``; ``caches`` (if given) are updated in place.
-    Returns the final activations."""
+    Returns the final activations.  With ``cfg.remat == "full"`` and
+    grad mode on, each block is checkpointed, as the reference
+    rematerializes each block: the backward replays one block at a time,
+    so the live saved tensors are one block's, not the whole stack's."""
     check_supported(cfg)
     kernels.validate()
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for kind, p, c in stack_blocks(params, cfg, caches):
-        x = apply_block(x, kind, p, cfg, kernels, positions=positions,
-                        cache=c, pos=pos, pos3=pos3)
+        if remat:
+            x = checkpoint(apply_block, x, kind, p, cfg, kernels,
+                           positions=positions, cache=c, pos=pos, pos3=pos3,
+                           use_reentrant=False)
+        else:
+            x = apply_block(x, kind, p, cfg, kernels, positions=positions,
+                            cache=c, pos=pos, pos3=pos3)
     return x

@@ -634,3 +634,128 @@ def test_int8_session_on_the_card_equals_the_cpu_session(cuda):
                                  for n, qp in sess.qgraph.acts.items()}}))
     x = _rnd(9, (8,) + tuple(sess.input_shape))
     np.testing.assert_array_equal(sess.predict(x), cpu.predict(x))
+
+
+# -------------------------------------------------------------- training --
+
+# (b, t, h, hkv, dh, causal, window, bq, bk): tests/test_attention_vjp.py's
+# cases, plus head dims 80 and 256
+TRAIN_FLASH_CASES = [
+    (2, 128, 4, 2, 32, True, None, 64, 64),
+    (1, 256, 8, 8, 16, True, None, 128, 64),
+    (2, 128, 4, 1, 32, False, None, 64, 64),
+    (1, 128, 4, 4, 16, True, 48, 64, 64),
+    (1, 128, 4, 2, 80, True, None, 64, 64),
+    (1, 128, 2, 1, 256, True, None, 64, 128),
+]
+TRAIN_LOCAL_CASES = [  # (b, t, h, hkv, dh, window, bq)
+    (2, 256, 4, 2, 32, 64, 64),
+    (1, 512, 2, 2, 16, 100, 128),
+    (1, 128, 4, 1, 32, 32, 32),
+    (1, 128, 4, 2, 80, 32, 64),
+    (1, 128, 2, 1, 256, 48, 64),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_under_grad_on_the_card(cuda):
+    """A CUDA input that requires grad under grad mode: each wrapper
+    raises naming the differentiable policy; under ``no_grad`` the same
+    call launches."""
+    x = torch.rand(1, 8, 8, 4, device=cuda, requires_grad=True)
+    w = torch.rand(3, 3, 4, 4, device=cuda)
+    b = torch.zeros(4, device=cuda)
+    q = torch.rand(1, 2, 8, 32, device=cuda, requires_grad=True)
+    s = torch.rand(1, 8, 2, 4, device=cuda, requires_grad=True)
+    s0 = torch.zeros(1, 2, 4, 4, device=cuda)
+    calls = [lambda: conv_mod.conv2d_cuda(x, w, b),
+             lambda: pool_mod.maxpool2d_cuda(x),
+             lambda: flash_mod.flash_attention_cuda(q, q, q),
+             lambda: scan_mod.linear_scan_cuda(s, s, s, s, s0)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="flash_jax"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def _attn_grads(fn, arrays, do, device):
+    ts = [torch.from_numpy(a).to(device).requires_grad_() for a in arrays]
+    out = fn(*ts)
+    out.backward(torch.from_numpy(do).to(device))
+    return [a.detach().cpu() for a in [out] + [t.grad for t in ts]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_FLASH_CASES + TRAIN_LOCAL_CASES)
+def test_flash_backward_on_the_card_matches_the_cpu(cuda, case):
+    """``flash_mha`` / ``local_mha``: output and dq/dk/dv on the card
+    equal the CPU's at rtol 1e-4 / atol 1e-5."""
+    from repro_torch.models import flash_mha, local_mha
+    if len(case) == 9:
+        b, t, h, hkv, dh, causal, window, bq, bk = case
+        fn = lambda q, k, v: flash_mha(q, k, v, causal, window, None, bq, bk)  # noqa: E731
+    else:
+        b, t, h, hkv, dh, window, bq = case
+        fn = lambda q, k, v: local_mha(q, k, v, window, None, bq)  # noqa: E731
+    arrays = (_rnd(1, (b, t, h, dh), 0.5), _rnd(2, (b, t, hkv, dh), 0.5),
+              _rnd(3, (b, t, hkv, dh), 0.5))
+    do = _rnd(4, (b, t, h, dh), 0.5)
+    for got, want in zip(_attn_grads(fn, arrays, do, cuda),
+                         _attn_grads(fn, arrays, do, "cpu")):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """One gemma3-4b ``.smoke()`` train step from the same weights on the
+    card and the CPU: the grads at rtol 1e-4 / atol 1e-5, loss and grad
+    norm at rtol 1e-4, the moments at rtol 1e-4 / atol 1e-5, the
+    parameters as ``optim.parity`` holds them."""
+    from repro_torch.configs.lm_archs import ARCHS
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.core.tree import unflatten
+    from repro_torch.models import lm
+    from repro_torch.models.stack import init_params
+    from repro_torch.optim import AdamW, parity
+    cfg = ARCHS["gemma3-4b"].smoke()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 256, (2, 32)),
+             "labels": rng.integers(0, 256, (2, 32))}
+    opt = AdamW(learning_rate=1e-3)
+    host = init_params(cfg, torch.Generator().manual_seed(0))
+    states, grads, metrics = [], [], []
+    for dev in (cuda, torch.device("cpu")):
+        params = tree_map(lambda p: p.to(dev, copy=True), host)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        live = [p.detach().requires_grad_() for p in leaves(params)]
+        loss, _ = lm.loss_fn(unflatten(params, live), cfg, tb)
+        grads.append(unflatten(params, [g.cpu() for g in torch.autograd.grad(
+            loss, live)]))
+        state = (params, opt.init(params),
+                 torch.zeros((), dtype=torch.int32, device=dev))
+        before = tree_map(lambda a: a.clone(), state[:2])
+        state, m = lm.make_train_step(cfg, opt)(state, tb)
+        states.append(state)
+        metrics.append(m)
+    for (k, a), (_, b) in zip(leaves_with_paths(grads[0]),
+                              leaves_with_paths(grads[1])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[0][key]),
+                                   float(metrics[1][key]), rtol=1e-4)
+    flat = [{k: v.cpu().numpy() for k, v in leaves_with_paths(st[1])}
+            for st in states]
+    for k in flat[1]:
+        if k != "step":
+            np.testing.assert_allclose(flat[0][k], flat[1][k], rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+    marks = {}
+    parity.mark_amplified(opt, before[1], before[0], grads[0], grads[1],
+                          marks, 1e-5)
+    parity.hold_params(*({k: v.cpu().numpy() for k, v in leaves_with_paths(
+        st[0])} for st in states), marks, parity.adam_step_bound(
+            1e-3, 0.1, 1.0), 1e-4, 1e-5)

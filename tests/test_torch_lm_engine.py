@@ -127,9 +127,6 @@ def test_sessions_refuse_the_other_workload():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="attention_vjp"):
-        LMSession(config=SessionConfig(device="cpu", lm=LMConfig(
-            attn_variant="flash_jax")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SessionConfig(autotune=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
