@@ -71,26 +71,40 @@ propagates and the script exits non-zero:
    bf16 3e-2; scan fp32 1e-4 and bf16 5e-2), the archs' head dims (80
    included, with one hubert-xlarge layer at full width), the scan at
    odd N, N 128, ragged M and T and with decays down to 1e-6, and the
-   main path's shapes; every bf16 output also within one rounding
-   (2**-8 relative) of the fp32 function of the same inputs; the scan's
-   two-halves state carry at 1e-5 (N 4, 64 and 128);
-10. lm_time   — per LM kernel at the main path's shapes (gemma3-4b's
-   global and local attention layers, rwkv6-7b's scan; batch 4, 1536
-   tokens): the kernel, its plain version and the library call where
-   one exists, through a replayed CUDA graph; bytes, operations and the
-   bound;
-11. lm_main  — per arch (gemma3-4b, rwkv6-7b) at full published width in
-   bf16 with random weights from seed 0: ``LMSession(backend="cuda-lm")``
-   with the kernel policy and with the plain policy on 4 prompts of 1536
-   tokens, ``max_context`` 2048, 16 new tokens, each run's kernel
-   launches counted from 0 (one per attention or RWKV layer of the
-   prefill for the kernel policy, none for the plain); prefill and
-   decode tokens/s, the card's busy share, the greedy-token agreement,
-   and the last prefill logits of both policies against the same weights
-   run in fp32 (there the policies agree within ``LM_FP32_REL_TOL``; in
-   bf16 the kernel policy is no further from fp32 than
-   ``LM_BF16_FACTOR`` times the plain one); the bf16 hidden states'
-   distance from the fp32 model's after every layer; then the arch's
+   main path's shapes (flash: gemma3-4b's global and local layers,
+   deepseek-moe-16b's 16 heads of 128, zamba2-2.7b's shared block's 32
+   heads of 80); every bf16 output also within one rounding (2**-8
+   relative) of the fp32 function of the same inputs; the scan's
+   two-halves state carry at 1e-5 (N 4, 64 and 128); then two layers at
+   full width on 4 x 1536 random hidden states: one grok-1-314b layer
+   (GQA 48/8 of 128, 8 experts of 32,768, top-2) through both policies
+   in bf16 and in fp32 (the gates of ``lm_main`` on the layer's
+   contribution), and one h2o-danube-3-4b layer in fp32 with its head
+   dim padded 120 -> 128 by ``pad_head_dim``, equal to the unpadded
+   layer through the kernel policy at rtol / atol 2e-5;
+10. lm_time   — per LM kernel at the main path's shapes (batch 4, 1536
+   tokens; flash at the four attention shapes above, rwkv6-7b's scan):
+   the kernel, its plain version and the library call where one exists,
+   through a replayed CUDA graph; bytes, operations and the bound;
+11. lm_main  — per arch (gemma3-4b, rwkv6-7b, deepseek-moe-16b,
+   zamba2-2.7b) at full published width in bf16 with random weights
+   from seed 0: ``LMSession(backend="cuda-lm")`` with the kernel policy
+   and with the plain policy on 4 prompts of 1536 tokens,
+   ``max_context`` 2048, 16 new tokens, each run's kernel launches
+   counted from 0 (one per attention or RWKV layer of the prefill for
+   the kernel policy: 34, 32, 28 and 9, none in decode, none for the
+   plain policy); prefill and decode tokens/s, the card's busy share
+   and top device kernels, the greedy-token agreement, the kernel's
+   graphed time a prefill, standalone estimates of the modules that may
+   set the prefill (the MoE MLP and its expert products, ``ssd_chunked``:
+   one layer's eager call on random inputs times its layers), and the
+   last prefill logits of both policies against the same weights run in
+   fp32 (there the policies agree within ``LM_FP32_REL_TOL``; in bf16
+   the kernel policy is no further from fp32 than ``LM_BF16_FACTOR``
+   times the plain one), deepseek-moe-16b's on its first
+   ``LM_CONTROL_LAYERS`` layers (those readings keyed ``control_``);
+   the bf16 hidden states' distance
+   from the fp32 model's after every layer; then the arch's
    ``.smoke()`` config in fp32, where both policies give the same
    tokens;
 12. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``:
@@ -117,9 +131,10 @@ propagates and the script exits non-zero:
    over 10 profiled steps; then preempted at step 4 of 6 (batch 2 x 32,
    checkpoints every 2) and resumed, every array of the final checkpoint
    against a straight 6-step run at rtol 1e-5 / atol 1e-6;
-16. train_smoke — 2 train steps of the gemma3-4b, rwkv6-7b and
-   qwen2-vl-72b ``.smoke()`` configs with ``remat="full"`` (qwen2-vl with
-   ``grad_accum=2``), card against CPU: loss and grad norm at rtol 1e-4,
+16. train_smoke — 2 train steps of the gemma3-4b, rwkv6-7b,
+   qwen2-vl-72b, deepseek-moe-16b and zamba2-2.7b ``.smoke()`` configs
+   with ``remat="full"`` (qwen2-vl with ``grad_accum=2``), card against
+   CPU: loss and grad norm at rtol 1e-4,
    parameters as ``repro_torch.optim.parity`` holds them (rtol 1e-4 /
    atol 1e-5 wherever the two devices' gradients agree to 10%);
 17. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-12
@@ -127,7 +142,8 @@ propagates and the script exits non-zero:
    ``lm_serve``) and 14 (the trained ball net served), each counted from
    0 and read as it ends, max error, and the kernel's, plain version's,
    bound's and library's ms per robot forward at batch 256 (maxpool2d's
-   from the cold readings) or per LM prefill;
+   from the cold readings) or per LM prefill of the first arch that
+   runs it, and per prefill of each arch that runs it (``per_arch``);
 18. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -165,9 +181,18 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                     "src/repro/kernels/linear_scan.py:31"),
 }
 # the LM main path: 4 prompts of 1536 tokens (longer than gemma3-4b's
-# window of 1024, so its ring caches roll), 16 new tokens
-LM_ARCHS = ("gemma3-4b", "rwkv6-7b")
+# window of 1024, so its ring caches roll; 12 of zamba2-2.7b's Mamba2
+# chunks of 128), 16 new tokens
+LM_ARCHS = ("gemma3-4b", "rwkv6-7b", "deepseek-moe-16b", "zamba2-2.7b")
 LM_BATCH, LM_PROMPT, LM_CONTEXT, LM_NEW = 4, 1536, 2048, 16
+# deepseek-moe-16b's fp32 control cannot sit beside its bf16 weights
+# (67.5 + 33.8 GB > 80 GB): its gates and layer drift are taken on the
+# first 8 of its 28 layers at full width (the same weights, as views);
+# the timed runs keep all 28
+LM_CONTROL_LAYERS = {"deepseek-moe-16b": 8}
+# the short prompt served beside the main batch: a multiple of Mamba2's
+# chunk of 128, as zamba2-2.7b's prefill of more than one chunk requires
+LM_SHORT = 640
 # The kernel and plain policies compute the same function.  In fp32 at
 # full width their sums differ in order only (relative ~1e-7 an op), and
 # 1e-3 in relative L2 of the last prefill logits leaves room for that
@@ -227,8 +252,10 @@ TRAIN_LOCAL_CASES = [
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 200
 # the .smoke() configs trained card against CPU: local attention with
 # GQA, the chunked scan's gradient, M-RoPE positions (with two
-# microbatches); each with remat="full"
-TRAIN_SMOKE = (("gemma3-4b", 1), ("rwkv6-7b", 1), ("qwen2-vl-72b", 2))
+# microbatches), the MoE's routing and Mamba2 with the shared block's
+# summed gradient; each with remat="full"
+TRAIN_SMOKE = (("gemma3-4b", 1), ("rwkv6-7b", 1), ("qwen2-vl-72b", 2),
+               ("deepseek-moe-16b", 1), ("zamba2-2.7b", 1))
 
 
 def emit(phase: str, **fields) -> None:
@@ -251,6 +278,18 @@ def compare(got, want, rtol: float, atol: float, what: str) -> float:
                              f"outside rtol {rtol} atol {atol}; max abs "
                              f"error {float(err.max())}")
     return float(err.max())
+
+
+def check_lm_gates(rel: dict, what: str) -> None:
+    """The LM gates on relative L2 distances: the fp32 kernel policy
+    within LM_FP32_REL_TOL of the plain one, and the bf16 kernel policy
+    no further from fp32 than LM_BF16_FACTOR times the plain one."""
+    if not rel["fp32_kernels_vs_plain"] <= LM_FP32_REL_TOL:
+        raise AssertionError(f"{what}: fp32 kernel vs plain policy: {rel}")
+    if not (rel["bf16_kernels_vs_fp32"] <= LM_BF16_FACTOR
+            * rel["bf16_plain_vs_fp32"] + LM_FP32_REL_TOL):
+        raise AssertionError(f"{what}: bf16 kernel policy further from "
+                             f"the fp32 model than the plain: {rel}")
 
 
 def events_ms(torch, step, per: int = 1, trials: int = 5) -> float:
@@ -1167,23 +1206,41 @@ def main() -> int:
 
     # -- 9. LM kernels against their plain versions ----------------------
     from repro_torch.configs.lm_archs import ARCHS
+    from repro_torch.core.tree import tree_map
     from repro_torch.engine import CudaLMBackend, LMConfig, LMSession
     from repro_torch.models.kernel_policy import (DEFAULT_KERNELS,
                                                   PLAIN_KERNELS)
     from repro_torch.kernels.ref import attention_ref, linear_scan_ref
+    from repro_torch.models.align import pad_head_dim
+    from repro_torch.models.layers import ParamInit
     from repro_torch.models.lm import embed_tokens, param_count
-    from repro_torch.models.stack import (apply_block, init_params,
-                                          stack_blocks)
+    from repro_torch.models.moe import capacity, moe_mlp
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.stack import (apply_block, init_block,
+                                          init_params, stack_blocks)
     from repro_torch.serve import LMTokenServer
 
     gemma, rwkv = ARCHS["gemma3-4b"], ARCHS["rwkv6-7b"]
     hubert = ARCHS["hubert-xlarge"]  # one full-width layer at head dim 80
-    heads = (gemma.n_heads, gemma.n_kv_heads, gemma.head_dim)
     rwkv_h, rwkv_n = rwkv.d_model // rwkv.ssm_head_dim, rwkv.ssm_head_dim
-    layers = gemma.prologue + gemma.pattern * gemma.n_groups
-    flash_main = {  # layer kind -> (window, launches per prefill)
-        "global": (None, layers.count("A")),
-        "local": (gemma.window, layers.count("L"))}
+
+    def kinds(cfg):
+        return cfg.prologue + cfg.pattern * cfg.n_groups
+
+    def heads(cfg):
+        return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    flash_main = {  # main-path attention layer -> (arch, heads, window,
+        # launches per prefill)
+        "gemma3-4b global": ("gemma3-4b", heads(gemma), None,
+                             kinds(gemma).count("A")),
+        "gemma3-4b local": ("gemma3-4b", heads(gemma), gemma.window,
+                            kinds(gemma).count("L"))}
+    for arch in ("deepseek-moe-16b", "zamba2-2.7b"):
+        cfg = ARCHS[arch]
+        label = arch + (" shared" if "S" in cfg.pattern else "")
+        flash_main[label] = (arch, heads(cfg), None, sum(
+            k in "ALS" for k in kinds(cfg)))
     f32, bf16 = torch.float32, torch.bfloat16
 
     def attn_inputs(b, hq, hkv, t, d, dtype, model_layout=False):
@@ -1217,13 +1274,13 @@ def main() -> int:
     lm_err = {"flash_attention": {}, "linear_scan": {}}
     main_rel_l2 = {}  # bf16 kernel vs fp32 function, the main shapes
     for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
-        cases = [c + (False,) for c in FLASH_CASES] + [
-            (LM_BATCH, *heads[:2], LM_PROMPT, heads[2], True, w, True)
-            for w, _ in flash_main.values()] + [
+        cases = [c + (None,) for c in FLASH_CASES] + [
+            (LM_BATCH, hq, hkv, LM_PROMPT, d, True, w, layer)
+            for layer, (_, (hq, hkv, d), w, _) in flash_main.items()] + [
             (LM_BATCH, hubert.n_heads, hubert.n_kv_heads, LM_PROMPT,
-             hubert.head_dim, hubert.causal, None, True)]
-        for b, hq, hkv, t, d, causal, window, model_layout in cases:
-            q, k, v = attn_inputs(b, hq, hkv, t, d, dtype, model_layout)
+             hubert.head_dim, hubert.causal, None, "hubert-xlarge")]
+        for b, hq, hkv, t, d, causal, window, layer in cases:
+            q, k, v = attn_inputs(b, hq, hkv, t, d, dtype, layer is not None)
             what = f"flash_attention {dtype} {(b, hq, hkv, t, d, window)}"
             o = flash_mod.flash_attention_cuda(q, k, v, causal=causal,
                                                window=window)
@@ -1234,12 +1291,12 @@ def main() -> int:
                                     window=window)
                 compare(o.float(), o32, BF16_ROUND_RTOL, BF16_ROUND_ATOL,
                         what + " vs fp32")
-                if model_layout:
-                    main_rel_l2[f"flash_attention window={window}"] = (
-                        rel_l2_t(o, o32))
+                if layer is not None:
+                    main_rel_l2[f"flash_attention {layer}"] = rel_l2_t(o, o32)
             key = str(dtype).replace("torch.", "")
             lm_err["flash_attention"][key] = max(
                 lm_err["flash_attention"].get(key, 0.0), e)
+            del q, k, v, o
     scan_cases = [c + (False,) for c in SCAN_CASES] + [
         (1, 200, 2, 64, 64, True), (1, 70, 2, 5, 16, True),
         (LM_BATCH, LM_PROMPT, rwkv_h, rwkv_n, rwkv_n, False)]
@@ -1277,21 +1334,81 @@ def main() -> int:
                         compare(torch.cat([y1, y2], 1), y_full, 1e-5, 1e-5,
                                 what),
                         compare(s2, s_full, 1e-5, 1e-5, what))
+
+    # two layers at full width, on random hidden states of the main shape
+    positions = torch.arange(LM_PROMPT, device=dev)[None].expand(LM_BATCH,
+                                                                 -1)
+    policies = {"kernels": DEFAULT_KERNELS, "plain": PLAIN_KERNELS}
+
+    def tree_float(tree):
+        return tree_map(lambda a: a.float(), tree)
+
+    def layer_out(cfg, kind, p, x, policy):
+        """The block's contribution ``apply_block(x) - x``, in fp32."""
+        with torch.inference_mode():
+            return (apply_block(x, kind, p, cfg, policy, positions=positions)
+                    .float() - x.float())
+
+    def layer_gates(cfg, kind, p, x):
+        """The ``lm_main`` gates (``check_lm_gates``) on one block's
+        contribution."""
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32, x32 = tree_float(p), x.float()
+        h32 = {n_: layer_out(cfg32, kind, p32, x32, pol)
+               for n_, pol in policies.items()}
+        del p32
+        h16 = {n_: layer_out(cfg, kind, p, x, pol)
+               for n_, pol in policies.items()}
+        rel = {"fp32_kernels_vs_plain": rel_l2_t(h32["kernels"],
+                                                 h32["plain"]),
+               "bf16_kernels_vs_fp32": rel_l2_t(h16["kernels"], h32["plain"]),
+               "bf16_plain_vs_fp32": rel_l2_t(h16["plain"], h32["plain"])}
+        check_lm_gates(rel, f"{cfg.name} layer")
+        return rel
+
+    grok = ARCHS["grok-1-314b"]
+    gen = torch.Generator(dev).manual_seed(0)
+    gp = init_block(ParamInit(dev, gen), "A", grok)
+    grok_rel = layer_gates(grok, "A", gp, rand((LM_BATCH, LM_PROMPT,
+                                                grok.d_model), bf16))
+    grok_capacity = capacity(LM_BATCH * LM_PROMPT, grok.top_k,
+                             grok.n_experts, grok.capacity_factor)
+    del gp
+    torch.cuda.empty_cache()
+    danube = dataclasses.replace(ARCHS["h2o-danube-3-4b"], dtype="float32")
+    dp = init_block(ParamInit(dev, gen), "L", danube)
+    dpp, danube_p = pad_head_dim(dp, danube, 128)
+    x = rand((LM_BATCH, LM_PROMPT, danube.d_model))
+    padded_err = compare(
+        layer_out(danube_p, "L", dpp, x, DEFAULT_KERNELS),
+        layer_out(danube, "L", dp, x, DEFAULT_KERNELS), 2e-5, 2e-5,
+        "h2o-danube-3-4b layer, head dim 120 padded to 128")
+    del dp, dpp, x
     torch.cuda.synchronize()
     emit("lm_kernels", flash_cases=len(cases), scan_cases=len(scan_cases),
          tolerance={"flash_attention": {"float32": 2e-5, "bfloat16": 3e-2},
                     "linear_scan": {"float32": 1e-4, "bfloat16": 5e-2},
                     "bfloat16_vs_fp32": {"rtol": BF16_ROUND_RTOL,
                                          "atol": BF16_ROUND_ATOL},
-                    "state_carry": 1e-5},
+                    "state_carry": 1e-5, "padded_head_dim": 2e-5},
          max_abs_err=lm_err, state_carry_err=carry_err,
-         bf16_main_shape_rel_l2_vs_fp32=main_rel_l2)
+         bf16_main_shape_rel_l2_vs_fp32=main_rel_l2,
+         grok_layer=dict(arch=grok.name, batch=LM_BATCH, tokens=LM_PROMPT,
+                         experts=grok.n_experts, top_k=grok.top_k,
+                         moe_d_ff=grok.moe_d_ff, capacity=grok_capacity,
+                         heads=list(heads(grok)),
+                         contribution_rel_l2=grok_rel,
+                         fp32_rel_tol=LM_FP32_REL_TOL,
+                         bf16_factor=LM_BF16_FACTOR),
+         padded_layer=dict(arch=danube.name, head_dim=[120, 128],
+                           dtype="float32", policy="kernels",
+                           max_abs_err=padded_err))
 
     # -- 10. LM kernel time at the main path's shapes --------------------
     lm_rows = {"flash_attention": [], "linear_scan": []}
     t = LM_PROMPT
-    for kind, (window, per_prefill) in flash_main.items():
-        q, k, v = attn_inputs(LM_BATCH, *heads[:2], t, heads[2], bf16, True)
+    for layer, (arch, (hq, hkv, d), window, n_layers) in flash_main.items():
+        q, k, v = attn_inputs(LM_BATCH, hq, hkv, t, d, bf16, True)
         qi = torch.arange(t, device=dev)[:, None]
         kj = torch.arange(t, device=dev)[None, :]
         mask = (kj <= qi) & ((qi - kj) < (window or t))
@@ -1304,9 +1421,9 @@ def main() -> int:
             def library():
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True)
-        compare(library(), o, 3e-2, 3e-2, f"library attention {kind}")
+        compare(library(), o, 3e-2, 3e-2, f"library attention {layer}")
         lm_rows["flash_attention"].append(dict(
-            layer=kind, window=window, per_prefill=per_prefill,
+            arch=arch, layer=layer, window=window, per_prefill=n_layers,
             q=list(q.shape), k=list(k.shape), dtype="bfloat16",
             ms=graph_ms(torch, lambda: flash_mod.flash_attention_cuda(
                 q, k, v, window=window)),
@@ -1314,12 +1431,13 @@ def main() -> int:
                 q, k, v, window=window), reps=3),
             library_ms=graph_ms(torch, library),
             nbytes=nbytes(q, k, v, o),
-            ops=4 * LM_BATCH * heads[0] * heads[2] * int(mask.sum()),
+            ops=4 * LM_BATCH * hq * d * int(mask.sum()),
             ops_rate="bf16 tensor cores, 989 TFLOP/s"))
     args = scan_inputs(LM_BATCH, t, rwkv_h, rwkv_n, rwkv_n, f32)
     y, s_t = scan_mod.linear_scan_cuda(*args)
     lm_rows["linear_scan"].append(dict(
-        layer="rwkv6 time mix", per_prefill=rwkv.n_layers,
+        arch="rwkv6-7b", layer="rwkv6 time mix",
+        per_prefill=kinds(rwkv).count("R"),
         shape=list(args[2].shape), dtype="float32",
         ms=graph_ms(torch, lambda: scan_mod.linear_scan_cuda(*args)),
         plain_ms=graph_ms(torch, lambda: linear_scan_ref(*args), reps=1),
@@ -1355,17 +1473,8 @@ def main() -> int:
             arch=arch, smoke=smoke, max_context=LM_CONTEXT,
             decode_batch=LM_BATCH, **pins)), params=params)
 
-    def tree_float(tree):
-        if isinstance(tree, dict):
-            return {k: tree_float(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [tree_float(v) for v in tree]
-        return tree.float()
-
     def rel_l2(a, b):
         return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
-    policies = {"kernels": DEFAULT_KERNELS, "plain": PLAIN_KERNELS}
 
     def layer_drift(cfg, params, params32, prompts):
         """Per layer, the relative L2 distance of the bf16 hidden states
@@ -1395,9 +1504,70 @@ def main() -> int:
         return out
 
     plain_pins = dict(attn_variant="reference", scan_variant="chunked")
-    lm_kernel_of = {"gemma3-4b": "flash_attention", "rwkv6-7b": "linear_scan"}
-    per_prefill = {"flash_attention": sum(n for _, n in flash_main.values()),
-                   "linear_scan": rwkv.n_layers}
+    lm_kernel_of = {"gemma3-4b": "flash_attention", "rwkv6-7b": "linear_scan",
+                    "deepseek-moe-16b": "flash_attention",
+                    "zamba2-2.7b": "flash_attention"}
+
+    def per_prefill(arch):
+        """Launches of the arch's kernel per kernel-policy prefill: one
+        per attention block (each use of a shared block) or RWKV block."""
+        layers = kinds(ARCHS[arch])
+        if lm_kernel_of[arch] == "linear_scan":
+            return layers.count("R")
+        return sum(k in "ALS" for k in layers)
+
+    def kernel_ms(arch):
+        """The graphed ms of the arch's kernel per prefill (lm_time)."""
+        return sum(r["per_prefill"] * r["ms"] for r in
+                   lm_rows[lm_kernel_of[arch]] if r["arch"] == arch)
+
+    def standalone_estimates(cfg, params):
+        """Standalone estimates, not a split of the timed prefill: the
+        eager CUDA-event ms of one layer's module alone, at the prefill's
+        shape on random inputs (random routing for the MoE, random decays
+        for ``ssd_chunked``), times the layers that run it, launch gaps
+        included.  The MoE MLP and its three expert products; Mamba2's
+        ``ssd_chunked``."""
+        blocks = stack_blocks(params, cfg)
+        d, n = cfg.d_model, LM_BATCH * LM_PROMPT
+        out = {}
+        with torch.inference_mode():
+            moe = [p_["mlp"] for k, p_, _ in blocks
+                   if cfg.n_experts and k != "S"]
+            if moe:
+                p0, x2 = moe[0], rand((n, d), bf16)
+                c = capacity(n, cfg.top_k, cfg.n_experts,
+                             cfg.capacity_factor)
+                buf = rand((cfg.n_experts, c, d), bf16)
+
+                def experts():
+                    h = F.silu(torch.bmm(buf, p0["wg"])) * torch.bmm(
+                        buf, p0["wu"])
+                    return torch.bmm(h, p0["wd"])
+
+                out.update(
+                    moe_mlp=len(moe) * events_ms(torch, lambda: moe_mlp(
+                        x2, p0, top_k=cfg.top_k, act=cfg.act,
+                        capacity_factor=cfg.capacity_factor)),
+                    moe_expert_products=len(moe) * events_ms(torch, experts))
+            n_mamba = sum(k == "M" for k, _, _ in blocks)
+            if n_mamba:
+                h_ = 2 * d // cfg.ssm_head_dim
+                a = torch.sigmoid(rand((LM_BATCH, LM_PROMPT, h_))) * 0.5 + 0.5
+                u = rand((LM_BATCH, LM_PROMPT, h_, cfg.ssm_head_dim))
+                bm, cm = (rand((LM_BATCH, LM_PROMPT, cfg.ssm_state), f32,
+                               0.1) for _ in range(2))
+                out["ssd_chunked"] = n_mamba * events_ms(
+                    torch, lambda: ssd_chunked(a, u, bm, cm))
+        return out
+
+    def first_layers(cfg, params, n):
+        """``cfg`` cut to its first ``n`` groups (no prologue), and views
+        of those groups' weights."""
+        assert not cfg.prologue
+        return (dataclasses.replace(cfg, n_layers=n * len(cfg.pattern)),
+                {**params, "groups": tree_map(lambda a: a[:n],
+                                              params["groups"])})
 
     def lm_phases(arch: str) -> None:
         """lm_main and lm_serve of one arch; its weights and sessions are
@@ -1429,7 +1599,7 @@ def main() -> int:
             runs[name] = dict(tokens=toks, logits=logits, prefill_s=pre_s,
                               decode_s=dec_s)
         launches["lm_main " + arch] = run_launches["kernels"]
-        want_launches = {k: per_prefill[kernel] if k == kernel else 0
+        want_launches = {k: per_prefill(arch) if k == kernel else 0
                          for k in counted}
         if run_launches != {"kernels": want_launches,
                             "plain": dict.fromkeys(counted, 0)}:
@@ -1438,19 +1608,40 @@ def main() -> int:
         lk, lp = runs["kernels"]["logits"], runs["plain"]["logits"]
         tk, tp = runs["kernels"]["tokens"], runs["plain"]["tokens"]
         # the same weights and prompts through the fp32 model, both
-        # policies: the reference the bf16 runs are measured against
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
-        params32 = tree_float(params)
+        # policies: the reference the bf16 runs are measured against (for
+        # deepseek-moe-16b on its first layers, bf16 runs of them beside)
+        ccfg, cparams, l16 = cfg, params, {"kernels": lk, "plain": lp}
+        cut = arch in LM_CONTROL_LAYERS
+        if cut:
+            ccfg, cparams = first_layers(cfg, params,
+                                         LM_CONTROL_LAYERS[arch])
+            l16 = {name: CudaLMBackend(
+                ccfg, params=cparams, max_context=LM_CONTEXT,
+                decode_batch=LM_BATCH, policy=policy).prefill(prompts)[0]
+                for name, policy in policies.items()}
+        cfg32 = dataclasses.replace(ccfg, dtype="float32")
+        params32 = tree_float(cparams)
         l32 = {name: CudaLMBackend(
             cfg32, params=params32, max_context=LM_CONTEXT,
             decode_batch=LM_BATCH, policy=policy).prefill(prompts)[0]
             for name, policy in policies.items()}
-        drift = layer_drift(cfg, params, params32, prompts)
+        drift = layer_drift(ccfg, cparams, params32, prompts)
         del params32
-        rel = {"fp32_kernels_vs_plain": rel_l2(l32["kernels"], l32["plain"]),
-               "bf16_kernels_vs_plain": rel_l2(lk, lp),
-               "bf16_kernels_vs_fp32": rel_l2(lk, l32["plain"]),
-               "bf16_plain_vs_fp32": rel_l2(lp, l32["plain"])}
+        gates = {"fp32_kernels_vs_plain": rel_l2(l32["kernels"],
+                                                 l32["plain"]),
+                 "bf16_kernels_vs_fp32": rel_l2(l16["kernels"], l32["plain"]),
+                 "bf16_plain_vs_fp32": rel_l2(l16["plain"], l32["plain"])}
+        # the timed (full-depth) runs' policies against each other; the
+        # gates' readings, and for a cut control its own bf16 pair, keyed
+        # control_ when they come from the cut control
+        rel = {"bf16_kernels_vs_plain": rel_l2(lk, lp)}
+        if cut:
+            gates_cut = dict(gates, bf16_kernels_vs_plain=rel_l2(
+                l16["kernels"], l16["plain"]))
+            rel.update({"control_" + k: v for k, v in gates_cut.items()})
+        else:
+            rel.update(gates)
+        estimates = standalone_estimates(cfg, params)
         busy_ms, wall_ms, top = device_busy(
             torch, lambda: kern.generate(prompts, LM_NEW))
         # the smoke config in fp32: both policies give the same tokens
@@ -1476,7 +1667,15 @@ def main() -> int:
                     ("decode_s", r["decode_s"]),
                     ("decode_tok_s", tokens_out / r["decode_s"]))},
              logits_rel_l2=rel, fp32_rel_tol=LM_FP32_REL_TOL,
-             bf16_factor=LM_BF16_FACTOR, layer_drift_rel_l2=drift,
+             bf16_factor=LM_BF16_FACTOR, control_layers=ccfg.n_layers,
+             layer_drift_rel_l2=drift,
+             prefill_kernel_ms={kernel: kernel_ms(arch)},
+             standalone_estimates_ms=estimates,
+             moe_capacity={"prefill": capacity(
+                 tokens_in, cfg.top_k, cfg.n_experts, cfg.capacity_factor),
+                 "decode": capacity(LM_BATCH, cfg.top_k, cfg.n_experts,
+                                    cfg.capacity_factor)}
+             if cfg.n_experts else None,
              logits_max_abs_diff=float(np.abs(lk - lp).max()),
              logits_max_abs=float(np.abs(lp).max()),
              greedy_agreement=float((tk == tp).mean()),
@@ -1488,15 +1687,10 @@ def main() -> int:
                         max_abs_err=smoke_err),
              launches=run_launches["kernels"],
              launches_plain=run_launches["plain"])
-        if not rel["fp32_kernels_vs_plain"] <= LM_FP32_REL_TOL:
-            raise AssertionError(f"{arch}: fp32 prefill logits, kernel vs "
-                                 f"plain policy: {rel}")
-        if not (rel["bf16_kernels_vs_fp32"] <= LM_BF16_FACTOR
-                * rel["bf16_plain_vs_fp32"] + LM_FP32_REL_TOL):
-            raise AssertionError(f"{arch}: bf16 kernel policy further from "
-                                 f"the fp32 model than the plain: {rel}")
+        check_lm_gates(gates, f"{arch} prefill logits ({ccfg.n_layers} "
+                              f"layers)")
 
-        short = prompts[0, :700]
+        short = prompts[0, :LM_SHORT]
         want_short = kern.generate(short[None], 8)[0]
         reset_counts()
         t0 = time.perf_counter()
@@ -1537,35 +1731,45 @@ def main() -> int:
                 else ["conv2d", "maxpool2d"])
         for kernel in want:
             assert got[kernel] > 0, f"phase {phase} launched no {kernel}"
-    kernels = []
-    for kernel, rs in {**rows, **lm_rows}.items():
+    def summary(rs):
+        """ms, plain, bound and library ms of rows ``rs`` per forward or
+        prefill (each row times its layers), and what bounds them."""
         per = [r.get("per_prefill", 1) for r in rs]
         t_bytes = sum(n * r["bytes_ms"] for n, r in zip(per, rs))
         t_ops = sum(n * r["ops_ms"] for n, r in zip(per, rs))
-        source, replaces = KERNELS[kernel]
-        if kernel == "maxpool2d":  # the pools read x from device memory
-            rs = [dict(r, ms=r["cold_ms"], plain_ms=r["plain_cold_ms"],
-                       library_ms=r["library_cold_ms"]) for r in rs]
         lib = [r["library_ms"] for r in rs]
-        entry = {
-            "name": kernel, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": sum(got[kernel] for got in launches.values()),
-            "max_abs_err": (err[kernel] if kernel in err
-                            else lm_err[kernel][MAIN_DTYPE[kernel]]),
+        return {
             "ms": sum(n * r["ms"] for n, r in zip(per, rs)),
             "plain_ms": sum(n * r["plain_ms"] for n, r in zip(per, rs)),
             "bound_ms": sum(n * r["bound_ms"] for n, r in zip(per, rs)),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": (None if None in lib else
                            sum(n * x for n, x in zip(per, lib)))}
+
+    kernels = []
+    for kernel, rs in {**rows, **lm_rows}.items():
+        source, replaces = KERNELS[kernel]
+        if kernel == "maxpool2d":  # the pools read x from device memory
+            rs = [dict(r, ms=r["cold_ms"], plain_ms=r["plain_cold_ms"],
+                       library_ms=r["library_cold_ms"]) for r in rs]
+        entry = {
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(got[kernel] for got in launches.values()),
+            "max_abs_err": (err[kernel] if kernel in err
+                            else lm_err[kernel][MAIN_DTYPE[kernel]])}
         if kernel in rows:
+            entry.update(summary(rs))
             entry.update(per="robot forward", layers=len(rs), batch=BATCH,
                          inputs="cold" if kernel == "maxpool2d" else "warm")
         else:
-            arch = {v: a for a, v in lm_kernel_of.items()}[kernel]
-            entry.update(per=f"{arch} prefill", launches_per_prefill=sum(per),
-                         batch=LM_BATCH, tokens=LM_PROMPT)
+            archs = [a for a in LM_ARCHS if lm_kernel_of[a] == kernel]
+            per_arch = {a: dict(summary([r for r in rs if r["arch"] == a]),
+                                launches_per_prefill=per_prefill(a))
+                        for a in archs}
+            entry.update(per_arch[archs[0]])
+            entry.update(per=f"{archs[0]} prefill", batch=LM_BATCH,
+                         tokens=LM_PROMPT, per_arch=per_arch)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,13 @@ path (dict keys, list indices and NamedTuple fields by name, joined by
 ``/``, as :func:`repro_torch.core.tree.leaves_with_paths` gives them)
 plus a ``manifest.json``.  So an fp32 checkpoint written by either
 package restores in the other.  numpy has no bfloat16: a bf16 leaf is
-stored as its bit pattern (uint16) and listed under ``"bfloat16"`` in
-the manifest, and restores bit for bit.  The reference's elastic
-``shardings`` argument waits for the port's launch slice.
+stored as its bit pattern in the reference's form, a 2-byte void
+(``|V2``) array, and listed under ``"bfloat16"`` in the manifest;
+:func:`restore` reads every 2-byte void leaf as bf16 bits, so a bf16
+checkpoint of either package restores here bit for bit.  (The
+reference's own ``restore`` cannot cast a ``|V2`` leaf and raises on
+either package's bf16 files.)  The reference's elastic ``shardings``
+argument waits for the port's launch slice.
 """
 from __future__ import annotations
 
@@ -30,13 +34,14 @@ import torch
 from ..core.tree import leaves_with_paths, unflatten
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
+_BF16_BITS = np.dtype("V2")  # what numpy writes for a bf16 array
 
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
+            return t.view(torch.int16).numpy().view(_BF16_BITS)
         return t.numpy()
     return np.asarray(leaf)
 
@@ -108,7 +113,7 @@ def restore(ckpt_dir: str, step: int, like, *, device="cpu"):
         if tuple(a.shape) != tuple(want.shape):
             raise ValueError(f"checkpoint {key}: shape {a.shape} != "
                              f"{tuple(want.shape)}")
-        if key in bf16:
+        if key in bf16 or a.dtype == _BF16_BITS:
             t = torch.from_numpy(np.array(a.view(np.int16))).view(
                 torch.bfloat16)
         else:

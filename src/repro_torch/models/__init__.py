@@ -1,6 +1,8 @@
-"""The LM stack in PyTorch: configs, kernel policy, layers, RWKV6, the
-layer stack, the flash backward and the LM-level API (forward, loss,
-train / eval / prefill / decode steps)."""
+"""The LM stack in PyTorch: configs, kernel policy, layers, the
+mixture-of-experts MLP, Mamba2 and RWKV6, head-dim alignment, the layer
+stack, the flash backward and the LM-level API (forward, loss, train /
+eval / prefill / decode steps)."""
+from .align import pad_head_dim
 from .attention_vjp import flash_mha, local_mha
 from .config import ModelConfig
 from .kernel_policy import (DEFAULT_KERNELS, PLAIN_KERNELS, TRAIN_KERNELS,
@@ -32,5 +34,6 @@ __all__ = [
     "make_eval_step",
     "make_prefill_step",
     "make_train_step",
+    "pad_head_dim",
     "param_count",
 ]

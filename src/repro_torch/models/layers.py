@@ -9,10 +9,10 @@ Conventions kept from the reference: ``rms_norm`` scales by
 ``1 + scale`` with eps 1e-6; ``layer_norm`` and ``group_norm_heads`` use
 eps 1e-5; every norm computes in fp32 and returns the input's type;
 ``rope`` rotates split halves (not interleaved pairs) and honours
-``rope_dim``; gelu is the tanh approximation.  The JAX package's
-blockwise XLA attention (``flash_attention_jax``, ``local_attention_jax``)
-is the training path and is not ported yet (ROADMAP Queue 1, item 8);
-prefill attention goes through :mod:`repro_torch.kernels.ops`.
+``rope_dim``; gelu is the tanh approximation.  Training attention (the
+JAX package's blockwise XLA attention with its custom VJPs) is
+:mod:`repro_torch.models.attention_vjp`; prefill attention goes through
+:mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -156,16 +156,25 @@ class ParamInit:
     def stacked(self, n: int) -> "ParamInit":
         return ParamInit(self.device, self.generator, self.lead + (n,))
 
-    def normal(self, shape, fan_in: int, dtype) -> torch.Tensor:
+    def _draw(self, shape, dtype, draw) -> torch.Tensor:
         out = torch.empty(self.lead + tuple(shape), dtype=dtype,
                           device=self.device)
         if self.device.type == "meta":
             return out
         for part in (out.unbind(0) if self.lead else (out,)):
-            part.copy_(torch.randn(part.shape, generator=self.generator,
-                                   dtype=torch.float32, device=self.device)
-                       * fan_in ** -0.5)
+            part.copy_(draw(part.shape))
         return out
+
+    def normal(self, shape, fan_in: int, dtype) -> torch.Tensor:
+        return self._draw(shape, dtype, lambda s: torch.randn(
+            s, generator=self.generator, dtype=torch.float32,
+            device=self.device) * fan_in ** -0.5)
+
+    def uniform(self, shape, low: float, high: float) -> torch.Tensor:
+        """U(low, high) in fp32."""
+        return self._draw(shape, torch.float32, lambda s: torch.empty(
+            s, dtype=torch.float32, device=self.device).uniform_(
+                low, high, generator=self.generator))
 
     def full(self, shape, value: float,
              dtype=torch.float32) -> torch.Tensor:

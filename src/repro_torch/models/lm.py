@@ -22,8 +22,7 @@ from .layers import rms_norm
 from ..core.tree import leaves, tree_map, unflatten
 from ..optim.adamw import AdamWState, global_norm
 from .kernel_policy import DEFAULT_KERNELS, TRAIN_KERNELS, KernelPolicy
-from .stack import (apply_stack, check_supported, dtype_of, init_cache,
-                    init_params)
+from .stack import apply_stack, dtype_of, init_cache, init_params
 
 # vocabulary columns unembedded at once in fp32 (bounds the temporary)
 UNEMBED_CHUNK = 32768
@@ -236,7 +235,6 @@ def from_jax_params(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
     ``n_groups`` axis), as the port's parameters on ``device``: the same
     tree of tensors, bit for bit.  Raises unless every key and shape
     matches :func:`init_params` of ``cfg``."""
-    check_supported(cfg)
     want = init_params(cfg, device="meta")
 
     def conv(w, got, path):

@@ -1,0 +1,95 @@
+"""Mixture-of-experts MLP in PyTorch (the port of the JAX package's
+``models/moe.py``: deepseek-moe's fine-grained experts, grok-1's coarse
+ones).
+
+Routing is the reference's sort-based dispatch: each token's top-k
+experts are sorted by expert id (a stable sort, so among the slots of
+one expert the earlier token comes first), scattered into an (E, C, D)
+capacity buffer, run through the experts as three batched products and
+combined back with the normalized gate weights.  Slots past an expert's
+capacity ``C`` are dropped: they are zeroed and added onto slot 0 of
+their expert, which adds +0 to the kept token there (the reference's
+``.at[].add``), so the scatter accumulates.  ``C`` counts the tokens of
+the whole call, so a token's output depends on the tokens it is batched
+with whenever some are dropped.
+
+The expert-parallel variant (``moe_mlp_ep``, an ``all_to_all`` across
+devices) waits for the port's launch slice (ROADMAP Queue 1, item 11).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import act_fn, linear
+
+
+def capacity(tokens: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots per expert: ``max(int(S * k / E * capacity_factor), 1)``."""
+    return max(int(tokens * top_k / n_experts * capacity_factor), 1)
+
+
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int,
+          router_in_f32: bool = True):
+    """Router logits (fp32), normalized top-k gates and expert ids."""
+    rx = x.float() if router_in_f32 else x
+    logits = (rx @ router.to(rx.dtype)).float()             # (S, E)
+    gates, eidx = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1)
+    return logits, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), eidx
+
+
+def moe_mlp(x: torch.Tensor, p: dict, *, top_k: int, act: str = "silu",
+            capacity_factor: float = 1.25,
+            router_in_f32: bool = True) -> torch.Tensor:
+    """x (S, D) tokens -> (S, D).
+
+    p: router (D, E); wg, wu (E, D, F); wd (E, F, D); optional
+    shared_wg / shared_wu (D, Fs) and shared_wd (Fs, D), the always-on
+    shared experts."""
+    s, d = x.shape
+    e = p["router"].shape[1]
+    c = capacity(s, top_k, e, capacity_factor)
+    _, gates, eidx = route(x, p["router"], top_k, router_in_f32)
+
+    # ---- sort-based dispatch ----
+    flat_e = eidx.reshape(-1)                               # (S*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    token_of_slot = order // top_k
+    counts = torch.zeros(e, dtype=sorted_e.dtype, device=x.device)
+    counts.scatter_add_(0, sorted_e, torch.ones_like(sorted_e))  # no sync
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(s * top_k, device=x.device) - starts[sorted_e]
+    keep = pos_in_e < c                                     # capacity drop
+    safe_pos = torch.where(keep, pos_in_e, 0)
+    xs = x[token_of_slot] * keep[:, None].to(x.dtype)
+    buf = torch.zeros((e, c, d), dtype=x.dtype, device=x.device).index_put(
+        (sorted_e, safe_pos), xs, accumulate=True)
+
+    # ---- the experts: three products batched over E ----
+    h = act_fn(act)(torch.bmm(buf, p["wg"].to(x.dtype)))
+    h = h * torch.bmm(buf, p["wu"].to(x.dtype))
+    y_buf = torch.bmm(h, p["wd"].to(x.dtype))
+
+    # ---- combine ----
+    y_slots = y_buf[sorted_e, safe_pos] * keep[:, None].to(x.dtype)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=x.device)
+    y = torch.einsum("skd,sk->sd", y_slots[inv].reshape(s, top_k, d),
+                     gates.to(x.dtype))
+
+    if "shared_wg" in p:
+        h = act_fn(act)(linear(x, p["shared_wg"])) * linear(x, p["shared_wu"])
+        y = y + linear(h, p["shared_wd"])
+    return y
+
+
+def aux_load_balance_loss(logits_f32: torch.Tensor, eidx: torch.Tensor,
+                          n_experts: int, top_k: int) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss: ``E * sum(me * ce)``
+    (mean router probability times the share of routed slots, per
+    expert)."""
+    me = torch.softmax(logits_f32, dim=-1).mean(0)
+    ce = F.one_hot(eidx, n_experts).sum(1).float().mean(0) / top_k
+    return n_experts * torch.sum(me * ce)

@@ -1,12 +1,15 @@
-"""RWKV6 ("Finch") time mix and channel mix in PyTorch (the RWKV6 half of
-the JAX package's ``models/ssm.py``).
+"""Mamba2 and RWKV6 ("Finch") in PyTorch (the port of the JAX package's
+``models/ssm.py``).
 
-The time mix runs the diagonal-decay recurrence the ``linear_scan``
-kernel implements.  The Mamba2 half (``ssd_chunked``, ``causal_conv1d``,
-``mamba2_mix``) is not ported yet (ROADMAP Queue 1, item 8).
+Mamba2's mixer runs the chunked SSD algorithm (:func:`ssd_chunked`:
+quadratic within a chunk as batched products, a short recurrence across
+chunks) for prefill and training, and its one-step recurrence in
+decode.  RWKV6's time mix runs the diagonal-decay recurrence the
+``linear_scan`` kernel implements.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -15,6 +18,139 @@ from torch.utils.checkpoint import checkpoint
 
 from .kernel_policy import fit_block
 from .layers import group_norm_heads, linear
+
+# ============================================================== Mamba2 ======
+
+
+def ssd_chunked(a, u, bm, cm, s0=None, chunk: int = 128):
+    """Chunked scan of ``S_t = a_t S_{t-1} + B_t u_t``, ``y_t = C_t S_t``.
+
+    a (B,T,H) in (0, 1]; u (B,T,H,P); bm, cm (B,T,N), shared over
+    heads; s0 (B,H,N,P) or None (zeros).  Returns y (B,T,H,P) in
+    ``u.dtype`` and the final state (B,H,N,P) in fp32.  ``T`` must be a
+    multiple of the chunk ``min(chunk, T)``, as the reference requires.
+
+    The reference's three-operand intra-chunk product is taken as the
+    (B,nc,c,c,H) weight ``(C_i.B_j) exp(cum_i - cum_j)`` (zero above the
+    diagonal) and one batched product over j, never the (B,nc,c,c,H,P)
+    intermediate.  The weight's upper triangle is masked before the
+    exponential, which gives the reference's values and keeps their
+    gradient finite."""
+    b, t, h = a.shape
+    p, n = u.shape[-1], bm.shape[-1]
+    c = min(chunk, t)
+    if t % c:
+        raise ValueError(f"ssd_chunked: T = {t} is not a multiple of the "
+                         f"chunk {c}")
+    nc = t // c
+    uc = u.reshape(b, nc, c, h, p).float()
+    bc = bm.reshape(b, nc, c, n).float()
+    cc = cm.reshape(b, nc, c, n).float()
+    cum = torch.cumsum(torch.log(a.reshape(b, nc, c, h).float().clamp_min(
+        1e-20)), dim=2)                                     # inclusive
+
+    # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) u_j
+    scores = torch.einsum("bgin,bgjn->bgij", cc, bc)
+    tri = torch.ones((c, c), dtype=torch.bool, device=a.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,i,j,H)
+    lm = diff.masked_fill(~tri[:, :, None], float("-inf")).exp()
+    w = (scores[..., None] * lm).permute(0, 1, 4, 2, 3)    # (B,nc,H,i,j)
+    y = (w @ uc.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+
+    # inter-chunk: each chunk's summary state, then the recurrence
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)      # (B,nc,c,H)
+    cstate = torch.einsum("bgjn,bgjhp->bghnp", bc,
+                          decay_to_end[..., None] * uc)
+    cdecay = torch.exp(cum[:, :, -1, :])                   # (B,nc,H)
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=a.device)
+             if s0 is None else s0.float())
+    prevs = []
+    for g in range(nc):
+        prevs.append(state)                                # before chunk g
+        state = cdecay[:, g, :, None, None] * state + cstate[:, g]
+    y_inter = torch.einsum("bgin,bghnp->bgihp", cc, torch.stack(prevs, 1))
+    y = y + torch.exp(cum)[..., None] * y_inter
+    return y.reshape(b, t, h, p).to(u.dtype), state
+
+
+def causal_conv1d(x, w, bias, state=None):
+    """Depthwise causal conv; x (B,T,C), w (K,C).  Returns (y, the last
+    K-1 inputs in ``x.dtype``, the decode state)."""
+    k = w.shape[0]
+    if state is None:
+        hist = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        hist = torch.cat([state.to(x.dtype), x], dim=1)
+    t = x.shape[1]
+    y = sum(hist[:, i:i + t] * w[i][None, None] for i in range(k))
+    return y + bias[None, None], hist[:, hist.shape[1] - (k - 1):]
+
+
+class MambaState(NamedTuple):
+    ssm: torch.Tensor   # (B, H, N, P) f32
+    conv: torch.Tensor  # (B, K-1, d_inner)
+
+
+def mamba2_mix(x, p, *, ssm_state: int, head_dim: int, chunk: int = 128,
+               state: Optional[MambaState] = None):
+    """Mamba2 mixer; x (B,T,D).  Returns ``(out, MambaState)``.  With a
+    state and T == 1: the one-step recurrence (decode); otherwise
+    :func:`ssd_chunked` from the state (zeros without one).  The casts
+    sit where the reference's do: the conv's fp32 weights make ``xi``
+    fp32, so the B, C and dt projections run in fp32, and ``y`` returns
+    to ``x.dtype`` only before the ``silu(z)`` gate."""
+    b, t, _ = x.shape
+    d_inner = p["w_in"].shape[1] // 2
+    h = d_inner // head_dim
+
+    xi, z = linear(x, p["w_in"]).chunk(2, dim=-1)
+    xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"],
+                                 None if state is None else state.conv)
+    xi = F.silu(xi)
+    bm = linear(xi, p["w_B"])                               # (B,T,N)
+    cm = linear(xi, p["w_C"])                               # (B,T,N)
+    dt = F.softplus(linear(xi, p["w_dt"]).float() + p["dt_bias"])
+    a = torch.exp(-dt * torch.exp(p["A_log"]))              # (B,T,H)
+    xh = xi.reshape(b, t, h, head_dim)
+    u = xh.float() * dt[..., None]                          # discretized
+
+    if t == 1 and state is not None:
+        s_final = (a[:, 0, :, None, None] * state.ssm
+                   + torch.einsum("bn,bhp->bhnp", bm[:, 0].float(), u[:, 0]))
+        y = torch.einsum("bn,bhnp->bhp", cm[:, 0].float(), s_final)[:, None]
+    else:
+        y, s_final = ssd_chunked(a, u, bm, cm,
+                                 None if state is None else state.ssm, chunk)
+    y = y + xh.float() * p["D_skip"][None, None, :, None]
+    y = y.reshape(b, t, d_inner).to(x.dtype) * F.silu(z)
+    return linear(y, p["w_out"]), MambaState(ssm=s_final, conv=new_conv)
+
+
+def init_mamba2(init, d: int, *, ssm_state: int, head_dim: int,
+                conv_kernel: int = 4, dtype=torch.bfloat16) -> dict:
+    """Mamba2 parameters with the JAX package's ``init_mamba2`` shapes,
+    types and scales (the conv weights drawn, rounded to ``dtype`` and
+    kept in fp32, as there); ``init`` is a
+    :class:`~repro_torch.models.layers.ParamInit`."""
+    d_inner = 2 * d
+    h = d_inner // head_dim
+    dt0 = init.uniform((h,), math.log(1e-3), math.log(1e-1))
+    return {
+        "w_in": init.normal((d, 2 * d_inner), d, dtype),
+        "conv_w": init.normal((conv_kernel, d_inner), conv_kernel,
+                              dtype).float(),
+        "conv_b": init.full((d_inner,), 0.0),
+        "w_B": init.normal((d_inner, ssm_state), d_inner, dtype),
+        "w_C": init.normal((d_inner, ssm_state), d_inner, dtype),
+        "w_dt": init.normal((d_inner, h), d_inner, dtype),
+        "dt_bias": torch.log(torch.expm1(torch.exp(dt0))),
+        "A_log": init.full((h,), 0.0),
+        "D_skip": init.full((h,), 1.0),
+        "w_out": init.normal((d_inner, d), d_inner, dtype),
+    }
+
+
+# ============================================================== RWKV6 =======
 
 
 class RWKVState(NamedTuple):

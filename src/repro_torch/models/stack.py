@@ -10,9 +10,10 @@ groups is a Python loop here, reading one group's slice (a view) at a
 time.
 
 Blocks ``A`` (global attention), ``L`` (sliding window), ``S`` (one
-shared attention block) and ``R`` (RWKV6) are ported.  ``M`` (Mamba2)
-blocks and mixture-of-experts MLPs are not yet (ROADMAP Queue 1, item
-8): building or running such a config raises ``NotImplementedError``.
+shared attention block: the same weights at every use, each use with its
+own cache), ``M`` (Mamba2) and ``R`` (RWKV6).  In a mixture-of-experts
+config every attention block but ``S`` takes the MoE MLP over its
+flattened (B*T, D) tokens; ``S`` blocks keep the dense MLP.
 
 Decode caches are updated in place (the JAX package returns new ones):
 prefill and each decode step write their keys, values and recurrent
@@ -40,25 +41,15 @@ from .layers import (
     rms_norm,
     rope,
 )
-from .ssm import RWKVState, init_rwkv6, rwkv6_channel_mix, rwkv6_time_mix
+from .moe import moe_mlp
+from .ssm import (MambaState, RWKVState, init_mamba2, init_rwkv6, mamba2_mix,
+                  rwkv6_channel_mix, rwkv6_time_mix)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    if "M" in cfg.pattern + cfg.prologue:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 ('M') blocks are not ported yet: ROADMAP.md "
-            f"Queue 1, item 8 (ssm.py Mamba2 half, ssd_chunked)")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts MLPs are not ported yet: "
-            f"ROADMAP.md Queue 1, item 8 (moe.py)")
 
 
 # ================================================================= init =====
@@ -86,11 +77,35 @@ def init_mlp(init: ParamInit, cfg: ModelConfig) -> dict:
     return p
 
 
+def init_moe(init: ParamInit, cfg: ModelConfig) -> dict:
+    d, e = cfg.d_model, cfg.n_experts
+    fe = cfg.moe_d_ff or cfg.d_ff
+    dt = dtype_of(cfg)
+    p = {"router": init.normal((d, e), d, torch.float32),
+         "wg": init.normal((e, d, fe), d, dt),
+         "wu": init.normal((e, d, fe), d, dt),
+         "wd": init.normal((e, fe, d), fe, dt)}
+    if cfg.n_shared_experts:
+        fs = fe * cfg.n_shared_experts
+        p.update(shared_wg=init.normal((d, fs), d, dt),
+                 shared_wu=init.normal((d, fs), d, dt),
+                 shared_wd=init.normal((fs, d), fs, dt))
+    return p
+
+
 def init_block(init: ParamInit, kind: str, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     if kind in ("A", "L", "S"):
+        moe = cfg.n_experts and kind != "S"
         return {"ln1": init.full((d,), 0.0), "ln2": init.full((d,), 0.0),
-                "attn": init_attn(init, cfg), "mlp": init_mlp(init, cfg)}
+                "attn": init_attn(init, cfg),
+                "mlp": init_moe(init, cfg) if moe else init_mlp(init, cfg)}
+    if kind == "M":
+        return {"ln1": init.full((d,), 0.0),
+                "mamba": init_mamba2(init, d, ssm_state=cfg.ssm_state,
+                                     head_dim=cfg.ssm_head_dim,
+                                     conv_kernel=cfg.conv_kernel,
+                                     dtype=dtype_of(cfg))}
     if kind == "R":
         return {"ln1": init.full((d,), 1.0), "ln1b": init.full((d,), 0.0),
                 "ln2": init.full((d,), 1.0), "ln2b": init.full((d,), 0.0),
@@ -104,7 +119,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     scales, drawn from ``generator`` on ``device`` (its own numbers: a
     ``torch.Generator`` does not give ``jax.random``'s bits).  On the
     ``meta`` device: shapes only."""
-    check_supported(cfg)
     init = ParamInit(device, generator)
     dt = dtype_of(cfg)
     params: Dict[str, Any] = {}
@@ -132,8 +146,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
     """Decode caches: {'pro': one per prologue block, 'grp': one per
     pattern position, stacked over groups}.  Attention blocks hold
     {'k', 'v'} of (B, S, Hkv, Dh), S = max_len, or min(window, max_len)
-    slots of a ring for ``L`` blocks; ``R`` blocks an :class:`RWKVState`."""
-    check_supported(cfg)
+    slots of a ring for ``L`` blocks; ``M`` blocks a :class:`MambaState`,
+    ``R`` blocks an :class:`RWKVState`."""
     return {"pro": [_position_cache(cfg, k, batch, max_len, (), device)
                     for k in cfg.prologue],
             "grp": [_position_cache(cfg, k, batch, max_len,
@@ -150,6 +164,12 @@ def _position_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         s = min(cfg.window, max_len) if kind == "L" else max_len
         return {"k": zeros(batch, s, cfg.n_kv_heads, cfg.head_dim),
                 "v": zeros(batch, s, cfg.n_kv_heads, cfg.head_dim)}
+    if kind == "M":
+        d_inner = 2 * cfg.d_model
+        return MambaState(
+            ssm=zeros(batch, d_inner // cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_head_dim, dtype=torch.float32),
+            conv=zeros(batch, cfg.conv_kernel - 1, d_inner))
     if kind == "R":
         n = cfg.ssm_head_dim
         return RWKVState(wkv=zeros(batch, cfg.d_model // n, n, n,
@@ -163,8 +183,8 @@ def _group(tree, g: int):
     """Group ``g``'s slice (views) of a group-stacked params/cache tree."""
     if isinstance(tree, dict):
         return {k: _group(v, g) for k, v in tree.items()}
-    if isinstance(tree, RWKVState):
-        return RWKVState(*(t[g] for t in tree))
+    if isinstance(tree, (MambaState, RWKVState)):
+        return type(tree)(*(t[g] for t in tree))
     return tree[g]
 
 
@@ -231,6 +251,16 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
     return linear(o.reshape(b, t, h * dh), p["wo"])
 
 
+def mlp_block(x, p, cfg: ModelConfig, kind: str):
+    """The MoE MLP over the (B*T, D) tokens in an MoE config's non-``S``
+    blocks, the dense gated MLP otherwise."""
+    if cfg.n_experts and kind != "S":
+        b, t, d = x.shape
+        return moe_mlp(x.reshape(b * t, d), p, top_k=cfg.top_k, act=cfg.act,
+                       capacity_factor=cfg.capacity_factor).reshape(b, t, d)
+    return gated_mlp(x, p, cfg.act)
+
+
 def apply_block(x, kind: str, p, cfg: ModelConfig,
                 kernels: KernelPolicy = DEFAULT_KERNELS, *, positions,
                 cache=None, pos=None, pos3=None):
@@ -238,8 +268,16 @@ def apply_block(x, kind: str, p, cfg: ModelConfig,
         x = x + attention_block(
             rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg, kernels, kind,
             positions=positions, cache=cache, pos=pos, pos3=pos3)
-        return x + gated_mlp(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
-                             cfg.act)
+        return x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
+                             cfg, kind)
+    if kind == "M":
+        h, state = mamba2_mix(rms_norm(x, p["ln1"], cfg.norm_eps), p["mamba"],
+                              ssm_state=cfg.ssm_state,
+                              head_dim=cfg.ssm_head_dim, state=cache)
+        if cache is not None:
+            for dst, src in zip(cache, state):
+                dst.copy_(src)
+        return x + h
     if kind == "R":
         h, wkv, prev_tm = rwkv6_time_mix(
             layer_norm(x, p["ln1"], p["ln1b"]), p["rwkv"],
@@ -283,7 +321,6 @@ def apply_stack(x, params, cfg: ModelConfig,
     grad mode on, each block is checkpointed, as the reference
     rematerializes each block: the backward replays one block at a time,
     so the live saved tensors are one block's, not the whole stack's."""
-    check_supported(cfg)
     kernels.validate()
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for kind, p, c in stack_blocks(params, cfg, caches):

@@ -11,6 +11,7 @@ suite's on the port's training script with ``--device cpu``, on a ``.smoke()``
 arch: the final arrays equal the straight run's at rtol 1e-5 /
 atol 1e-6.
 """
+import json
 import os
 import subprocess
 import sys
@@ -28,7 +29,7 @@ from repro.optim import AdamW as JaxAdamW
 from repro_torch.checkpoint import all_steps, latest_step, restore, save
 from repro_torch.configs.lm_archs import ARCHS
 from repro_torch.core.tree import leaves, leaves_with_paths
-from repro_torch.models import from_jax_train_state
+from repro_torch.models import from_jax_params, from_jax_train_state
 from test_torch_lm_model import perturbed_jax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,6 +140,75 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(jstate)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _bf16_params(arch="zamba2-2.7b"):
+    """A bf16 ``.smoke()`` param tree of the JAX package (bf16 weights,
+    fp32 norms, conv weights and biases) with numpy leaves."""
+    from dataclasses import replace
+    from repro.models.stack import init_params as jax_init_params
+    jcfg = replace(JAX_ARCHS[arch].smoke(), dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, jax_init_params(jcfg,
+                                                    jax.random.PRNGKey(3)))
+    cfg = replace(ARCHS[arch].smoke(), dtype="bfloat16")
+    return tree, from_jax_params(cfg, tree)
+
+
+def test_jax_bf16_checkpoint_restores_in_the_port(tmp_path):
+    """The JAX ``save`` writes bf16 leaves as 2-byte void (``|V2``)
+    arrays and lists no bf16 keys; the port restores them bit for bit."""
+    d = str(tmp_path / "ckpt")
+    tree, like = _bf16_params()
+    assert any(a.dtype.name == "bfloat16" for a in jax.tree.leaves(tree))
+    jax_save(d, 2, tree)
+    _equal(restore(d, 2, like), like)
+    assert any(a.dtype == torch.bfloat16 for a in leaves(like))
+
+
+def test_port_bf16_checkpoint_has_the_jax_form(tmp_path):
+    """For the same values the port's ``arrays.npz`` holds the keys,
+    dtypes and bytes the JAX ``save`` writes; the port's manifest keeps
+    its ``"bfloat16"`` list."""
+    tree, like = _bf16_params()
+    jax_save(str(tmp_path / "jax"), 1, tree)
+    save(str(tmp_path / "port"), 1, like)
+    with np.load(tmp_path / "jax" / "step_1" / "arrays.npz") as zj, \
+            np.load(tmp_path / "port" / "step_1" / "arrays.npz") as zp:
+        assert sorted(zj.files) == sorted(zp.files)
+        n_bf16 = 0
+        for k in zj.files:
+            assert zp[k].dtype == zj[k].dtype, k
+            assert zp[k].tobytes() == zj[k].tobytes(), k
+            n_bf16 += zj[k].dtype == np.dtype("V2")
+    assert n_bf16 > 0
+    with open(tmp_path / "port" / "step_1" / "manifest.json") as f:
+        listed = json.load(f)["bfloat16"]
+    assert len(listed) == n_bf16
+
+
+def test_port_bf16_tree_roundtrips_and_the_reference_refuses_it(tmp_path):
+    """A bf16 param tree saved and restored by the port is bit-equal.
+    The JAX ``restore`` cannot cast a ``|V2`` leaf, on the port's file as
+    on its own: it raises rather than loading wrong numbers."""
+    tree, like = _bf16_params()
+    d = str(tmp_path / "ckpt")
+    save(d, 5, like)
+    _equal(restore(d, 5, like), like)
+    with pytest.raises(ValueError, match="cast"):
+        jax_restore(d, 5, tree)
+
+
+def test_port_restores_its_older_uint16_bf16_files(tmp_path):
+    """Checkpoints the port wrote before it took the reference's form
+    (bf16 bits as uint16, listed under ``"bfloat16"``) still restore."""
+    d = tmp_path / "ckpt" / "step_1"
+    d.mkdir(parents=True)
+    w = torch.tensor([1.5, -2.25, 3.0]).to(torch.bfloat16)
+    np.savez(d / "arrays.npz", w=w.view(torch.int16).numpy().view(np.uint16))
+    (d / "manifest.json").write_text(json.dumps(
+        {"step": 1, "keys": ["w"], "bfloat16": ["w"]}))
+    got = restore(str(tmp_path / "ckpt"), 1, {"w": w})
+    assert torch.equal(got["w"].view(torch.int16), w.view(torch.int16))
 
 
 def test_preempt_and_resume_matches_the_straight_run(tmp_path):

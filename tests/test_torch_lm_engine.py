@@ -54,7 +54,8 @@ def gemma():
     return _pair("gemma3-4b")
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-7b", "deepseek-moe-16b",
+                                  "zamba2-2.7b"])
 def test_greedy_tokens_equal_the_jax_session(arch, request):
     jax_sess, port = (request.getfixturevalue("gemma") if arch == "gemma3-4b"
                       else _pair(arch))
@@ -131,9 +132,6 @@ def test_unported_options_raise():
         SessionConfig(autotune=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMConfig(mesh_shape=(1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMSession(config=SessionConfig(device="cpu", lm=LMConfig(
-            arch="zamba2-2.7b")))
 
 
 def test_the_card_is_the_default_device():

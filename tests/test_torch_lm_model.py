@@ -31,8 +31,8 @@ from repro_torch.models.kernel_policy import DEFAULT_KERNELS, PLAIN_KERNELS
 from repro_torch.models.stack import init_cache, init_params
 
 COVERED = ["gemma3-4b", "gemma3-27b", "h2o-danube-3-4b", "qwen1.5-110b",
-           "qwen2-vl-72b", "hubert-xlarge", "rwkv6-7b"]
-NOT_YET = ["deepseek-moe-16b", "grok-1-314b", "zamba2-2.7b"]
+           "qwen2-vl-72b", "hubert-xlarge", "rwkv6-7b", "deepseek-moe-16b",
+           "grok-1-314b", "zamba2-2.7b"]
 POLICIES = {"kernels": DEFAULT_KERNELS, "plain": PLAIN_KERNELS}
 
 
@@ -258,7 +258,8 @@ def test_bf16_reference_policy_matches_jax(arch):
     assert rel <= 3e-2, (arch, rel)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-7b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-7b", "qwen2-vl-72b",
+                                  "zamba2-2.7b", "deepseek-moe-16b"])
 def test_prefill_and_decode_steps_match(arch):
     """Prefill (last-position logits) and two decode steps with the
     port's in-place caches against the JAX steps, prompt 12 > window 8."""
@@ -293,6 +294,8 @@ def test_params_carry_across_bit_for_bit(arch):
         assert np.array_equal(np.asarray(a), t.numpy())
     assert lm.param_count(cfg) == jlm.param_count(jcfg)
     assert lm.param_count(ARCHS[arch]) == jlm.param_count(JAX_ARCHS[arch])
+    assert (lm.active_param_count(ARCHS[arch])
+            == jlm.active_param_count(JAX_ARCHS[arch]))
 
 
 def test_from_jax_params_refuses_a_foreign_tree():
@@ -318,17 +321,24 @@ def test_init_params_has_the_jax_shapes_and_scales():
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.01
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma3-4b", "rwkv6-7b"])
+def test_init_cache_has_the_jax_tree(arch):
+    """Every cache leaf's shape and type as the JAX ``init_cache`` makes
+    them: zamba2's Mamba2 states and the shared block's per-use KV
+    caches, stacked over groups."""
+    from repro.models.stack import init_cache as jax_init_cache
+    jcfg, cfg = JAX_ARCHS[arch].smoke(), ARCHS[arch].smoke()
+    want = jax.eval_shape(lambda: jax_init_cache(jcfg, 2, 16))
+    got = init_cache(cfg, 2, 16)
+    wl, gl = jax.tree.leaves(want), jax.tree.leaves(got)
+    assert len(wl) == len(gl)
+    for w, g in zip(wl, gl):
+        assert tuple(g.shape) == tuple(w.shape)
+        assert str(g.dtype) == "torch." + str(w.dtype)
+
+
 def test_init_cache_shapes():
     cfg = ARCHS["gemma3-4b"].smoke()
     c = init_cache(cfg, 2, 32)
     assert c["pro"][0]["k"].shape == (2, 8, 2, 16)        # L: a ring of 8
     assert c["grp"][-1]["k"].shape == (cfg.n_groups, 2, 32, 2, 16)  # G
-
-
-@pytest.mark.parametrize("arch", NOT_YET)
-def test_unported_blocks_raise(arch):
-    cfg = ARCHS[arch].smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.param_count(cfg)

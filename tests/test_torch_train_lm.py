@@ -160,10 +160,12 @@ def test_three_train_steps_match_jax(arch):
     _close(_port_flat(state[1].nu), _flat(jstate[1].nu), "nu")
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen2-vl-72b",
+                                  "deepseek-moe-16b", "zamba2-2.7b"])
 def test_grad_accum_steps_match_jax(arch):
     """``grad_accum=2``: two microbatches per step (``positions3`` split
-    on its batch dim for qwen2-vl): loss, grad norm, moments and
+    on its batch dim for qwen2-vl; each microbatch routed on its own
+    tokens for deepseek-moe): loss, grad norm, moments and
     parameters as in the single-batch steps (the amplified elements
     found from the full batch's gradients)."""
     state, jstate, marks = _train_three_steps(arch, grad_accum=2)
@@ -172,11 +174,14 @@ def test_grad_accum_steps_match_jax(arch):
     _close(_port_flat(state[1].nu), _flat(jstate[1].nu), "nu")
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-7b", "zamba2-2.7b",
+                                  "deepseek-moe-16b"])
 def test_remat_full_gives_the_same_grads(arch):
     """Checkpointed blocks recompute the same forward: the grads equal
     those without remat to 1e-6 (gemma3: local and global attention;
-    rwkv6: the chunked scan)."""
+    rwkv6: the chunked scan; zamba2: Mamba2 and the shared block's
+    weights, checkpointed at each of their uses; deepseek-moe: the
+    routing replayed)."""
     cfg = ARCHS[arch].smoke()
     params = lm.from_jax_params(cfg, perturbed_jax_params(
         JAX_ARCHS[arch].smoke()))
