@@ -4,8 +4,8 @@
     python3 chip_smoke.py          # from the repository root
 
 Phases, in order, each printing one JSON line (``time`` one per robot
-layer, ``lm_main`` and ``lm_serve`` one per arch); any failure
-propagates and the script exits non-zero:
+layer, ``lm_main`` and ``lm_serve`` one per arch, ``lm_tune`` one per
+tuned arch); any failure propagates and the script exits non-zero:
 
 1. device    — the card's name and power limit (the raw ``nvidia-smi``
    line, also printed on its own), torch and CUDA versions, and PyTorch's
@@ -106,22 +106,48 @@ propagates and the script exits non-zero:
    the bf16 hidden states' distance
    from the fp32 model's after every layer; then the arch's
    ``.smoke()`` config in fp32, where both policies give the same
-   tokens;
-12. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``:
-   each result equals ``session.generate`` on the same prompts;
-13. train_grad — the CUDA kernel wrappers refuse an input that requires
+   tokens.  Both sessions decode through the CUDA graph each handle
+   captures (``decode_graph``): the kernel session's greedy tokens
+   equal an eager oracle's (the same weights, prompts and prefill, then
+   the direct ``make_decode_step`` loop), its last decode logits'
+   difference from the oracle's reported; the seconds of the eager
+   warm-up step and of the capture step (capture, instantiation, first
+   replay), the steady step's wall ms and tokens/s, the replay's device
+   ms between CUDA events beside its bound (the weights' and caches'
+   bytes over 3.35 TB/s) and the oracle's decode tokens/s;
+12. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``
+   (the worker thread captures each handle's graph): each result equals
+   ``session.generate`` on the same prompts;
+13. lm_tune  — gemma3-4b and rwkv6-7b (after their ``lm_serve``, on the
+   same weights): ``LMSession(autotune=True)`` at full width in bf16
+   into a fresh directory, as the session tunes (batch 4, prompt 16,
+   the best of 3 a candidate): the winner, its prefill µs, the tuning's
+   seconds and kernel launches; a second session reads the record
+   (``tuned_from_cache``) and launches nothing; a session pinned to the
+   winner gives the tuned session's tokens;
+14. lm_decode_graph — every decoding arch's ``.smoke()`` config in fp32
+   at batch 2 (prompts of 12, past the smoke window of 8), and
+   deepseek-moe-16b's at capacity factor 1.25 and batch 4 (1 slot an
+   expert: tokens drop in decode): the graphed decode's tokens equal
+   the eager oracle's; two handles of one batch size decoded in turns,
+   each equal to its own run alone;
+15. examples — ``examples/serve_lm_torch.py`` and
+   ``examples/serve_cnn_torch.py``, each a process of its own on the
+   card: exit 0 and their closing OK lines; the CNN example's conv2d and
+   maxpool2d launches;
+16. train_grad — the CUDA kernel wrappers refuse an input that requires
    grad under grad mode (their kernels have no backward), and
    ``flash_mha`` / ``local_mha``, the training path's attention with its
    hand-written backward, give on the card the CPU's outputs and
    dq/dk/dv (``tests/test_attention_vjp.py``'s cases plus head dims 80
    and 256) at rtol 1e-4 / atol 1e-5;
-14. train_ball — ``trained_ball_classifier(150, seed=0)`` on the card:
+17. train_ball — ``trained_ball_classifier(150, seed=0)`` on the card:
    its parameters after 5 steps equal the CPU's (rtol 1e-4 / atol 1e-5),
    held-out accuracy at least 0.97, seconds per step, no kernel launched
    while training; the trained net served through ``"cuda"`` (conv2d
    and maxpool2d, launches counted) against ``"torch"`` at rtol 1e-4 /
    atol 1e-5 on 2,000 frames; its int8 session at least float - 0.02;
-15. train_lm — lm-100m (the JAX launch script's model: 12 layers, d_model 768,
+18. train_lm — lm-100m (the JAX launch script's model: 12 layers, d_model 768,
    fp32) at batch 8 x 256: its first 3 train steps on the card against
    the CPU's from the same weights (loss and grad norm at rtol 1e-4);
    200 steps through ``repro_torch.launch.train.main`` (checkpoints every
@@ -131,20 +157,21 @@ propagates and the script exits non-zero:
    over 10 profiled steps; then preempted at step 4 of 6 (batch 2 x 32,
    checkpoints every 2) and resumed, every array of the final checkpoint
    against a straight 6-step run at rtol 1e-5 / atol 1e-6;
-16. train_smoke — 2 train steps of the gemma3-4b, rwkv6-7b,
+19. train_smoke — 2 train steps of the gemma3-4b, rwkv6-7b,
    qwen2-vl-72b, deepseek-moe-16b and zamba2-2.7b ``.smoke()`` configs
    with ``remat="full"`` (qwen2-vl with ``grad_accum=2``), card against
    CPU: loss and grad norm at rtol 1e-4,
    parameters as ``repro_torch.optim.parity`` holds them (rtol 1e-4 /
    atol 1e-5 wherever the two devices' gradients agree to 10%);
-17. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-12
+20. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-13
    (LM: the kernel policy's run in ``lm_main``, the server's in
-   ``lm_serve``) and 14 (the trained ball net served), each counted from
+   ``lm_serve``, the tunings of ``lm_tune``), 15 (the CNN example) and 17
+   (the trained ball net served), each counted from
    0 and read as it ends, max error, and the kernel's, plain version's,
    bound's and library's ms per robot forward at batch 256 (maxpool2d's
    from the cold readings) or per LM prefill of the first arch that
    runs it, and per prefill of each arch that runs it (``per_arch``);
-18. the last line — ``{"ok": true, "device": {...}}``.
+21. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -152,10 +179,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -190,6 +219,9 @@ LM_BATCH, LM_PROMPT, LM_CONTEXT, LM_NEW = 4, 1536, 2048, 16
 # first 8 of its 28 layers at full width (the same weights, as views);
 # the timed runs keep all 28
 LM_CONTROL_LAYERS = {"deepseek-moe-16b": 8}
+# the archs LMSession(autotune=True) tunes at full width: attention and
+# its tiles (gemma3-4b), the RWKV scan (rwkv6-7b)
+LM_TUNE_ARCHS = ("gemma3-4b", "rwkv6-7b")
 # the short prompt served beside the main batch: a multiple of Mamba2's
 # chunk of 128, as zamba2-2.7b's prefill of more than one chunk requires
 LM_SHORT = 640
@@ -425,7 +457,7 @@ def pool_layers(graph):
 
 
 def train_phases(torch, np, counts, reset_counts, launches) -> None:
-    """Phases 13-16: the training slice on the card (see the module
+    """Phases 16-19: the training slice on the card (see the module
     docstring).  ``launches`` gains the trained ball net's serving run."""
     import dataclasses
     import tempfile
@@ -452,7 +484,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
     cpu = torch.device("cpu")
     zero = {name: 0 for name in counts()}
 
-    # -- 13. train_grad --------------------------------------------------
+    # -- 16. train_grad --------------------------------------------------
     x = torch.rand(1, 8, 8, 4, device=dev, requires_grad=True)
     w, b = torch.rand(3, 3, 4, 4, device=dev), torch.zeros(4, device=dev)
     q = torch.rand(1, 2, 8, 32, device=dev, requires_grad=True)
@@ -508,7 +540,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
          local_cases=len(TRAIN_LOCAL_CASES), rtol=1e-4, atol=1e-5,
          max_abs_err=attn_err)
 
-    # -- 14. train_ball --------------------------------------------------
+    # -- 17. train_ball --------------------------------------------------
     five = [trained_ball_classifier(5, seed=0, eval_n=200, device=d)[0]
             for d in (dev, cpu)]
     ball_err = 0.0
@@ -559,7 +591,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
          int8_top1_agreement=float((top1(qsess.predict(xs))
                                     == top1(got)).mean()))
 
-    # -- 15. train_lm ----------------------------------------------------
+    # -- 18. train_lm ----------------------------------------------------
     cfg = train_mod.LM_100M
     tc = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH, seed=0)
@@ -682,7 +714,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
          launches=lm_launches, resume_arrays=n_arrays,
          resume_max_abs_err=resume_err, resume_bit_equal=resume_equal)
 
-    # -- 16. train_smoke -------------------------------------------------
+    # -- 19. train_smoke -------------------------------------------------
     smoke = {}
     for arch, accum in TRAIN_SMOKE:
         scfg = dataclasses.replace(ARCHS[arch].smoke(), remat="full",
@@ -1206,14 +1238,16 @@ def main() -> int:
 
     # -- 9. LM kernels against their plain versions ----------------------
     from repro_torch.configs.lm_archs import ARCHS
-    from repro_torch.core.tree import tree_map
-    from repro_torch.engine import CudaLMBackend, LMConfig, LMSession
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.engine import (CudaLMBackend, LMConfig, LMSession,
+                                    device_digest)
     from repro_torch.models.kernel_policy import (DEFAULT_KERNELS,
                                                   PLAIN_KERNELS)
     from repro_torch.kernels.ref import attention_ref, linear_scan_ref
     from repro_torch.models.align import pad_head_dim
     from repro_torch.models.layers import ParamInit
-    from repro_torch.models.lm import embed_tokens, param_count
+    from repro_torch.models.lm import (embed_tokens, make_decode_step,
+                                       make_prefill_step, param_count)
     from repro_torch.models.moe import capacity, moe_mlp
     from repro_torch.models.ssm import ssd_chunked
     from repro_torch.models.stack import (apply_block, init_block,
@@ -1452,21 +1486,68 @@ def main() -> int:
                                   rate or FP32_OPS_PER_S)
             emit("lm_time", kernel=kernel, **r)
 
-    # -- 11-12. the LM main path and serving, one arch at a time ---------
+    # -- 11-13. the LM main path, serving and tuning, one arch at a time -
     def timed_generate(sess, prompts, max_new):
-        """Greedy tokens, the prefill's last logits, and the seconds of
-        the prefill and of the decode steps (each ends on the host)."""
+        """Greedy tokens, the prefill's last logits, the last decode
+        logits, and the seconds of the prefill and of each decode step
+        (each ends on the host).  On the card the first step is the
+        graph's eager warm-up, the second its capture, instantiation and
+        first replay, the rest replays."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, handle = sess.prefill(prompts)
         t1 = time.perf_counter()
         tok = np.argmax(logits, axis=-1).astype(np.int32)
-        out = [tok]
+        out, steps, last = [tok], [], logits
         for _ in range(max_new - 1):
-            tok = np.argmax(sess.decode(handle, tok), axis=-1).astype(
-                np.int32)
+            t2 = time.perf_counter()
+            last = sess.decode(handle, tok)
+            steps.append(time.perf_counter() - t2)
+            tok = np.argmax(last, axis=-1).astype(np.int32)
             out.append(tok)
-        return np.stack(out, axis=1), logits, t1 - t0, time.perf_counter() - t1
+        return dict(tokens=np.stack(out, axis=1), logits=logits,
+                    prefill_s=t1 - t0, steps_s=steps, decode_s=sum(steps),
+                    last_logits=last)
+
+    def eager_generate(backend, prompts, max_new):
+        """The eager oracle of a backend's graphed decode: its weights,
+        policy and prompts through ``make_prefill_step``, then the direct
+        ``make_decode_step`` loop with an int position on the current
+        stream, each step as the eager backend ran it (tokens to the
+        card, logits to the host); the ``timed_generate`` fields."""
+        cfg, params = backend.model_cfg, backend.params
+        prefill = make_prefill_step(cfg, backend.max_context, backend.policy)
+        decode = make_decode_step(cfg, backend.policy)
+
+        def to_dev(a):
+            return torch.from_numpy(a.astype(np.int64)).to(dev)
+
+        with torch.inference_mode():
+            logits, caches, pos = prefill(params, {"tokens": to_dev(prompts)})
+            logits = logits.cpu().numpy()
+            tok = np.argmax(logits, axis=-1).astype(np.int32)
+            out, steps, last = [tok], [], logits
+            for _ in range(max_new - 1):
+                t2 = time.perf_counter()
+                step, caches, pos = decode(params, caches,
+                                           to_dev(tok[:, None]), pos)
+                last = step.cpu().numpy()
+                steps.append(time.perf_counter() - t2)
+                tok = np.argmax(last, axis=-1).astype(np.int32)
+                out.append(tok)
+        return dict(tokens=np.stack(out, axis=1), logits=logits,
+                    steps_s=steps, decode_s=sum(steps), last_logits=last)
+
+    def graph_vs_eager(graph, eager, what):
+        """The graph's gate: greedy tokens equal the eager oracle's; the
+        last decode logits' difference reported (0 when bit-equal)."""
+        if not np.array_equal(graph["tokens"], eager["tokens"]):
+            raise AssertionError(f"{what}: graphed decode tokens differ "
+                                 f"from the eager oracle's")
+        a, b = graph["last_logits"], eager["last_logits"]
+        return dict(tokens_equal=True, last_logits_bit_equal=bool(
+            np.array_equal(a, b)), last_logits_max_abs_diff=float(
+                np.abs(a - b).max()))
 
     def lm_session(arch, params=None, smoke=False, **pins):
         return LMSession(config=SessionConfig(backend="cuda-lm", lm=LMConfig(
@@ -1580,8 +1661,9 @@ def main() -> int:
         plain = lm_session(arch, params, **plain_pins)
         prompts = np.random.default_rng(21).integers(
             0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT)).astype(np.int32)
-        for sess in (kern, plain):  # first calls: allocator, cuBLAS
-            sess.generate(prompts[:, :128], 2)
+        for sess in (kern, plain):  # first calls: allocator, cuBLAS, a
+            # first capture (each generate captures its own handle's)
+            sess.generate(prompts[:, :128], 3)
         # the main path: one prefill and LM_NEW - 1 decode steps through
         # each session, counted from 0; the kernel policy launches its
         # kernel once per layer of the prefill and never in decode, the
@@ -1589,16 +1671,46 @@ def main() -> int:
         runs, run_launches = {}, {}
         for name, sess in (("kernels", kern), ("plain", plain)):
             reset_counts()
-            toks, logits, pre_s, dec_s = timed_generate(sess, prompts, LM_NEW)
+            runs[name] = timed_generate(sess, prompts, LM_NEW)
             torch.cuda.synchronize()
             run_launches[name] = counts()
+            logits = runs[name]["logits"]
             if logits.shape != (LM_BATCH, cfg.vocab_size) or not np.isfinite(
                     logits).all():
                 raise AssertionError(f"{arch} {name}: bad logits "
                                      f"{logits.shape}")
-            runs[name] = dict(tokens=toks, logits=logits, prefill_s=pre_s,
-                              decode_s=dec_s)
         launches["lm_main " + arch] = run_launches["kernels"]
+        # the eager oracle of the kernel session's graphed decode (its
+        # prefill's launches are not the main path's)
+        eager = eager_generate(kern.backend, prompts, LM_NEW)
+        graph_gate = graph_vs_eager(runs["kernels"], eager, arch)
+        # the steady replay on a handle of its own: device time between
+        # CUDA events, and the bound, the weights' and caches' bytes
+        _, spare = kern.prefill(prompts)
+        for _ in range(2):  # the warm-up, then the capture
+            kern.decode(spare, runs["kernels"]["tokens"][:, 0])
+        replay_ms = events_ms(torch, lambda: [spare.graph.replay()
+                                              for _ in range(10)], 10)
+        # what the replayed step spends its device time on
+        r_busy, r_wall, r_top = device_busy(
+            torch, lambda: [spare.graph.replay() for _ in range(10)])
+        step_bytes = nbytes(*leaves(params), *leaves(spare.caches))
+        del spare
+        gsteps, esteps = runs["kernels"]["steps_s"], eager["steps_s"]
+        decode_graph = dict(
+            warmup_s=gsteps[0], capture_s=gsteps[1],
+            steady_step_ms=statistics.median(gsteps[2:]) * 1e3,
+            steady_tok_s=LM_BATCH / statistics.median(gsteps[2:]),
+            replay_ms=replay_ms, replay_profiled_busy_ms=r_busy / 10,
+            replay_profiled_wall_ms=r_wall / 10,
+            replay_top_device_kernels=r_top,
+            bound_ms=step_bytes / MEM_BYTES_PER_S * 1e3,
+            bound_by="bytes", step_bytes=step_bytes,
+            replay_share_of_step=replay_ms / (statistics.median(
+                gsteps[2:]) * 1e3),
+            eager_decode_tok_s=LM_BATCH * (LM_NEW - 1) / eager["decode_s"],
+            eager_steady_step_ms=statistics.median(esteps[1:]) * 1e3,
+            **graph_gate)
         want_launches = {k: per_prefill(arch) if k == kernel else 0
                          for k in counted}
         if run_launches != {"kernels": want_launches,
@@ -1649,8 +1761,9 @@ def main() -> int:
             0, 256, size=(2, 20)).astype(np.int32)
         sk = lm_session(arch, smoke=True)
         sp = lm_session(arch, sk.backend.params, smoke=True, **plain_pins)
-        (stk, slk, _, _), (stp, slp, _, _) = (
-            timed_generate(s_, small, 8) for s_ in (sk, sp))
+        (stk, slk), (stp, slp) = (
+            (r["tokens"], r["logits"]) for r in (
+                timed_generate(s_, small, 8) for s_ in (sk, sp)))
         if not np.array_equal(stk, stp):
             raise AssertionError(f"{arch} smoke: greedy tokens differ")
         smoke_err = compare(torch.from_numpy(slk), torch.from_numpy(slp),
@@ -1676,6 +1789,8 @@ def main() -> int:
                  "decode": capacity(LM_BATCH, cfg.top_k, cfg.n_experts,
                                     cfg.capacity_factor)}
              if cfg.n_experts else None,
+             decode=kern.backend.describe()["decode"],
+             decode_graph=decode_graph,
              logits_max_abs_diff=float(np.abs(lk - lp).max()),
              logits_max_abs=float(np.abs(lp).max()),
              greedy_agreement=float((tk == tp).mean()),
@@ -1716,16 +1831,138 @@ def main() -> int:
              latency_p50_us=st["latency_p50_us"],
              latency_p99_us=st["latency_p99_us"], batches=st["batches"],
              batch_size_mean=st["batch_size_mean"],
+             decode=kern.backend.describe()["decode"],
              launches=launches["lm_serve " + arch])
+        if arch in LM_TUNE_ARCHS:
+            lm_tune(arch, params, prompts)
+
+    def lm_tune(arch, params, prompts):
+        """``LMSession(autotune=True)`` at full width on the arch's
+        weights, into a fresh directory: the tuning (its kernel launches
+        counted), a second session reading the record and timing nothing
+        (no launch), and a session pinned to the winner giving the tuned
+        one's tokens."""
+        with tempfile.TemporaryDirectory() as tdir:
+            config = SessionConfig(
+                backend="cuda-lm", autotune=True, tune_cache=tdir,
+                lm=LMConfig(arch=arch, smoke=False, max_context=LM_CONTEXT,
+                            decode_batch=LM_BATCH))
+            reset_counts()
+            t0 = time.perf_counter()
+            tuned = LMSession(config=config, params=params)
+            tune_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches["lm_tune " + arch] = counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            again = LMSession(config=config, params=params)
+            again_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            again_launches = counts()
+        pol = tuned.tuned.policy
+        if tuned.tuned.from_cache or not again.tuned.from_cache or any(
+                again_launches.values()) or again.kernel_policy != pol:
+            raise AssertionError(f"{arch}: the tuning cache did not answer "
+                                 f"the second session: {again.info}, "
+                                 f"launches {again_launches}")
+        pinned = lm_session(arch, params, attn_variant=pol.attention,
+                            scan_variant=pol.scan, block_q=pol.block_q,
+                            block_k=pol.block_k)
+        toks = tuned.generate(prompts, 8)
+        if not np.array_equal(toks, pinned.generate(prompts, 8)):
+            raise AssertionError(f"{arch}: the tuned session's tokens differ "
+                                 f"from its pinned winner's")
+        emit("lm_tune", arch=arch, dtype=ARCHS[arch].dtype,
+             batch=LM_BATCH, prompt=min(16, LM_CONTEXT),
+             max_context=LM_CONTEXT, iters=max(1, config.tune_iters // 100),
+             device=str(tuned.backend.device),
+             digest=device_digest(dev), winner=dict(pol._asdict()),
+             prefill_us=tuned.tuned.prefill_us, tune_s=tune_s,
+             cached_session_s=again_s, cached_from_cache=True,
+             cached_launches=again_launches,
+             pinned_tokens_equal=True, launches=launches["lm_tune " + arch])
 
     for arch in LM_ARCHS:
         lm_phases(arch)
         torch.cuda.empty_cache()
 
-    # -- 13-16. training ------------------------------------------------
+    # -- 14. the graphed decode on every decoding arch's smoke config ----
+    def smoke_backend(arch, batch, **changes):
+        cfg = dataclasses.replace(ARCHS[arch].smoke(), **changes)
+        return CudaLMBackend(cfg, max_context=40, decode_batch=batch)
+
+    def small_prompts(seed, batch):
+        return np.random.default_rng(seed).integers(
+            0, 256, size=(batch, 12)).astype(np.int32)
+
+    graph_runs = {}
+    graph_cases = [(a, 2, {}) for a in sorted(ARCHS)
+                   if not ARCHS[a].is_encoder]
+    # the MoE at capacity factor 1.25, batch 4: 1 slot an expert, so
+    # tokens drop in decode, and the graph must drop the same ones
+    graph_cases.append(("deepseek-moe-16b", 4, {"capacity_factor": 1.25}))
+    for arch, batch, changes in graph_cases:
+        be = smoke_backend(arch, batch, **changes)
+        p_ = small_prompts(1, batch)
+        got = timed_generate(be, p_, 8)
+        key = arch + ("" if not changes else " capacity_factor 1.25")
+        graph_runs[key] = dict(
+            batch=batch, **graph_vs_eager(got, eager_generate(be, p_, 8), key))
+        if be.model_cfg.n_experts:
+            graph_runs[key].update(
+                decode_capacity=capacity(batch, be.model_cfg.top_k,
+                                         be.model_cfg.n_experts,
+                                         be.model_cfg.capacity_factor),
+                slots=batch * be.model_cfg.top_k,
+                experts=be.model_cfg.n_experts)
+    interleaved = {}
+    for arch in ("gemma3-4b", "rwkv6-7b", "zamba2-2.7b", "deepseek-moe-16b"):
+        be = smoke_backend(arch, 2)
+        pa, pb = small_prompts(2, 2), small_prompts(3, 2)
+        alone = [timed_generate(be, p_, 10)["tokens"] for p_ in (pa, pb)]
+        (la, ha), (lb, hb) = be.prefill(pa), be.prefill(pb)
+        ta, tb = [np.argmax(la, -1).astype(np.int32)], [
+            np.argmax(lb, -1).astype(np.int32)]
+        for _ in range(9):
+            ta.append(np.argmax(be.decode(ha, ta[-1]), -1).astype(np.int32))
+            tb.append(np.argmax(be.decode(hb, tb[-1]), -1).astype(np.int32))
+        if not (ha.graph is not None and hb.graph is not None
+                and ha.graph is not hb.graph
+                and np.array_equal(np.stack(ta, 1), alone[0])
+                and np.array_equal(np.stack(tb, 1), alone[1])):
+            raise AssertionError(f"{arch}: two interleaved handles do not "
+                                 f"each give their own run's tokens")
+        interleaved[arch] = True
+    emit("lm_decode_graph", dtype="float32", prompt=12, new_tokens=8,
+         archs=graph_runs, interleaved_handles_equal=interleaved)
+
+    # -- 15. the serving examples, each a process of its own -------------
+    example_lines = {}
+    for name, ok in (("serve_lm_torch", "serve_lm_torch: OK"),
+                     ("serve_cnn_torch", "serve_cnn_torch: OK")):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        lines = out.stdout.strip().splitlines()
+        if out.returncode != 0 or not lines or lines[-1] != ok:
+            raise AssertionError(f"examples/{name}.py: exit "
+                                 f"{out.returncode}\n{out.stdout[-3000:]}"
+                                 f"\n{out.stderr[-3000:]}")
+        example_lines[name] = dict(seconds=time.perf_counter() - t0,
+                                   stdout=lines)
+    got = json.loads(next(ln for ln in example_lines["serve_cnn_torch"][
+        "stdout"] if ln.startswith("kernel launches: ")).split(": ", 1)[1])
+    launches["examples serve_cnn_torch"] = {**dict.fromkeys(counted, 0),
+                                            **got}
+    emit("examples", runs=example_lines,
+         launches=launches["examples serve_cnn_torch"])
+
+    # -- 16-19. training ------------------------------------------------
     train_phases(torch, np, counts, reset_counts, launches)
 
-    # -- 17. the kernels line --------------------------------------------
+    # -- 20. the kernels line --------------------------------------------
     for phase, got in launches.items():
         want = ([lm_kernel_of[phase.split()[1]]] if phase.startswith("lm_")
                 else ["conv2d", "maxpool2d"])

@@ -1,7 +1,9 @@
 """The port's inference engine: CNN sessions over the ``"cuda"``
 (hand-written kernels) and ``"torch"`` (plain eager; at
 ``precision="int8"`` the int8 reference) backends, and LM sessions over
-``"cuda-lm"``."""
+``"cuda-lm"``, whose kernel variants :mod:`.autotune` times and caches."""
+from .autotune import (LMTuneResult, TuningCache, device_digest,
+                       lm_fingerprint, tune_lm_variants)
 from .backends import (Backend, CudaBackend, CudaLMBackend, KVCacheHandle,
                        LMBackend, QuantizedTorchBackend, TorchBackend,
                        available_backends, get_backend, register_backend)
@@ -19,10 +21,15 @@ __all__ = [
     "LMBackend",
     "LMConfig",
     "LMSession",
+    "LMTuneResult",
     "QuantizedTorchBackend",
     "SessionConfig",
     "TorchBackend",
+    "TuningCache",
     "available_backends",
+    "device_digest",
     "get_backend",
+    "lm_fingerprint",
     "register_backend",
+    "tune_lm_variants",
 ]

@@ -24,13 +24,16 @@ counterpart of ``"pallas-lm"``) runs the LM stack of
 :mod:`repro_torch.models` with prefill through the hand-written
 flash-attention and linear-scan kernels, behind the
 :class:`LMBackend` contract (prefill / decode / generate /
-predict_batch / describe over a :class:`KVCacheHandle`).
+predict_batch / describe over a :class:`KVCacheHandle`).  On the card
+its decode step is captured once per handle as a CUDA graph and
+replayed, where the JAX backend runs its jitted step.
 """
 from __future__ import annotations
 
 import abc
 import contextlib
 import copy
+import threading
 import time
 from typing import Dict, List, Type
 
@@ -233,14 +236,21 @@ class QuantizedTorchBackend(_ModuleBackend):
 class KVCacheHandle:
     """An opaque decode-state handle: the per-layer KV/recurrence caches
     plus the next write position.  Returned by :meth:`LMBackend.prefill`,
-    advanced in place by :meth:`LMBackend.decode`."""
+    advanced in place by :meth:`LMBackend.decode`.
 
-    __slots__ = ("caches", "pos", "batch")
+    On the card a :class:`CudaLMBackend` handle also owns its decode
+    step's CUDA graph (``graph``) and the graph's static buffers
+    (``static``: the tokens, the device position, the logits); ``pos``
+    stays the host's count."""
+
+    __slots__ = ("caches", "pos", "batch", "graph", "static")
 
     def __init__(self, caches, pos: int, batch: int):
         self.caches = caches
         self.pos = pos
         self.batch = batch
+        self.graph = None
+        self.static = None
 
     def __repr__(self):
         return f"KVCacheHandle(batch={self.batch}, pos={self.pos})"
@@ -300,9 +310,21 @@ class CudaLMBackend(LMBackend):
     """The LM stack (:mod:`repro_torch.models`) on one device, prefill
     through the :class:`~repro_torch.models.kernel_policy.KernelPolicy`'s
     attention and scan (by default the hand-written flash-attention and
-    linear-scan kernels), decode through plain torch.  Runs under
-    ``inference_mode`` on the current stream; constructed by
-    :class:`repro_torch.engine.LMSession`."""
+    linear-scan kernels), decode through plain torch, under
+    ``inference_mode``; constructed by
+    :class:`repro_torch.engine.LMSession`.
+
+    On a CUDA device every call runs on the backend's own stream, one
+    call at a time (a lock: a capture on that stream must see no other
+    thread's work), and decode is a CUDA graph, one per handle.  A
+    handle's first decode runs eagerly on its static buffers: the
+    warm-up, and the real step.  The second captures the step (with the
+    device position) into the handle's graph from the backend's one
+    memory pool, then replays it; every later step copies the tokens in
+    and replays.  The graph reads and writes the handle's caches in
+    place and advances the device position; the logits reach the host
+    before the next replay.  A capture that fails raises: there is no
+    eager fallback.  On the CPU decode stays eager."""
 
     def __init__(self, model_cfg, *, params=None, max_context: int = 128,
                  decode_batch: int = 1, policy=None, seed: int = 0,
@@ -321,9 +343,75 @@ class CudaLMBackend(LMBackend):
             model_cfg, max_len=self.max_context, kernels=self.policy)
         self._decode_fn = (None if model_cfg.is_encoder
                            else lm_mod.make_decode_step(model_cfg, self.policy))
+        self._lock = threading.Lock()
+        self._stream = self._pool = self._pool_keeper = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+            # a one-node graph in the pool for the backend's lifetime: a
+            # pool whose graphs have all been freed (every handle gone)
+            # takes no further capture
+            self._pool_keeper = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self._stream):
+                self._capture(self._pool_keeper, lambda: torch.zeros(
+                    (), device=self.device))
+            torch.cuda.synchronize(self.device)
 
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
+
+    @contextlib.contextmanager
+    def _running(self):
+        """One call at a time, under ``inference_mode``, on the backend's
+        stream (after the work the caller's stream holds, such as the
+        weights' initialization)."""
+        with self._lock, torch.inference_mode():
+            if self._stream is None:
+                yield
+                return
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                yield
+
+    def _capture(self, graph, fn):
+        """Capture ``fn()`` into ``graph`` from the backend's pool on the
+        current stream (the backend's): ``capture_begin`` without
+        ``torch.cuda.graph``'s device-wide synchronize, ``gc.collect``
+        and ``empty_cache``, which every new handle would pay; thread-
+        local, since server workers launch from other threads."""
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode="thread_local")
+        try:
+            return fn()
+        finally:
+            graph.capture_end()
+
+    def _graph_step(self, handle: KVCacheHandle) -> torch.Tensor:
+        """The decode step on the handle's static tokens and device
+        position, which it advances; returns the logits."""
+        st = handle.static
+        logits, _, nxt = self._decode_fn(self.params, handle.caches,
+                                         st["tokens"], st["pos"])
+        st["pos"].copy_(nxt)
+        return logits
+
+    def _decode_graphed(self, handle: KVCacheHandle,
+                        tokens: np.ndarray) -> torch.Tensor:
+        st = handle.static
+        if st is None:  # the first step, eager: the warm-up
+            handle.static = {"tokens": self._tokens(tokens),
+                             "pos": torch.full((), handle.pos,
+                                               dtype=torch.int64,
+                                               device=self.device)}
+            return self._graph_step(handle)
+        st["tokens"].copy_(torch.from_numpy(np.asarray(tokens, np.int64)))
+        if handle.graph is None:  # the second: capture once, then replay
+            graph = torch.cuda.CUDAGraph()
+            st["logits"] = self._capture(graph,
+                                         lambda: self._graph_step(handle))
+            handle.graph = graph
+        handle.graph.replay()
+        return st["logits"]
 
     # ----------------------------------------------------- LM contract --
     def prefill(self, tokens: np.ndarray):
@@ -332,7 +420,7 @@ class CudaLMBackend(LMBackend):
         if t > self.max_context:
             raise ValueError(
                 f"prompt length {t} > max_context {self.max_context}")
-        with torch.inference_mode():
+        with self._running():
             logits, caches, pos = self._prefill_fn(
                 self.params, {"tokens": self._tokens(tokens)})
             out = logits.cpu().numpy()
@@ -347,14 +435,19 @@ class CudaLMBackend(LMBackend):
                 f"position {handle.pos} is past max_context "
                 f"{self.max_context}")
         tokens = np.asarray(tokens, np.int32).reshape(handle.batch, 1)
-        with torch.inference_mode():
-            logits, handle.caches, handle.pos = self._decode_fn(
-                self.params, handle.caches, self._tokens(tokens), handle.pos)
-            return logits.cpu().numpy()
+        with self._running():
+            if self._stream is None:
+                logits, handle.caches, handle.pos = self._decode_fn(
+                    self.params, handle.caches, self._tokens(tokens),
+                    handle.pos)
+                return logits.cpu().numpy()
+            out = self._decode_graphed(handle, tokens).cpu().numpy()
+            handle.pos += 1
+            return out
 
     # ------------------------------------------------- shared contract --
     def predict_batch(self, x: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
+        with self._running():
             return lm_mod.forward(self.params, self.model_cfg,
                                   {"tokens": self._tokens(x)},
                                   self.policy).cpu().numpy()
@@ -370,5 +463,6 @@ class CudaLMBackend(LMBackend):
             "max_context": self.max_context,
             "decode_batch": self.decode_batch,
             "kernel_policy": dict(self.policy._asdict()),
+            "decode": "cuda_graph" if self._stream is not None else "eager",
             "n_params": lm_mod.param_count(self.model_cfg),
         }

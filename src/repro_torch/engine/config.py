@@ -10,10 +10,12 @@ sub-config ``CalibrationConfig`` and its ``lm`` sub-config ``LMConfig``).
                         lm=LMConfig(arch="gemma3-4b", smoke=False))
 
 ``device=None`` means the card (``cuda:0``); a session asked for the card
-on a machine without one raises ``RuntimeError``.  The C code generator's
-knobs (simd, unroll, threads, tuning, fusion, pipeline stages) have no
-meaning here; autotuning and device meshes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items.
+on a machine without one raises ``RuntimeError``.  ``autotune=True`` times
+the LM kernel variants (:mod:`repro_torch.engine.autotune`) and caches the
+winner in ``tune_cache``.  The C code generator's knobs (simd, unroll,
+threads, fusion, pipeline stages) have no meaning here; device meshes are
+not ported yet and raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -186,7 +188,14 @@ class SessionConfig:
     * ``calibration`` — the int8 calibration knobs
       (:class:`CalibrationConfig`, or a dict of its fields).
     * ``device`` — a torch device string; ``None`` = ``cuda:0``.
-    * ``autotune`` — not ported yet.
+    * ``autotune`` — an LM session times its kernel variants and keeps
+      the fastest (:func:`repro_torch.engine.autotune.tune_lm_variants`);
+      a CNN session has nothing to tune and builds its backend as is.
+    * ``tune_cache`` — the tuning cache: a directory path, a
+      :class:`~repro_torch.engine.autotune.TuningCache`, or ``None`` for
+      the default directory.
+    * ``tune_iters`` — the measurement budget; an LM tuning takes the
+      best of ``max(1, tune_iters // 100)`` prefills a candidate.
     * ``lm`` — the LM workload (:class:`LMConfig`), served by
       :class:`repro_torch.engine.LMSession`; ``None`` = a CNN session.
     """
@@ -196,6 +205,8 @@ class SessionConfig:
     precision: str = "fp32"
     device: Optional[str] = None
     autotune: bool = False
+    tune_cache: Optional[Any] = None    # dir path str, or a TuningCache
+    tune_iters: int = 300
     calibration: CalibrationConfig = field(default_factory=CalibrationConfig)
     lm: Optional[LMConfig] = None
 
@@ -203,10 +214,8 @@ class SessionConfig:
         if self.precision not in _PRECISIONS:
             raise ValueError(
                 f"precision {self.precision!r}; expected one of {_PRECISIONS}")
-        if self.autotune:
-            raise NotImplementedError(
-                "autotune=True is not ported yet: ROADMAP.md Queue 1, item 9 "
-                "(tune_lm_variants, device_digest)")
+        if self.tune_iters < 1:
+            raise ValueError(f"tune_iters {self.tune_iters} < 1")
         if self.device is not None:
             torch.device(self.device)  # raises on a malformed device string
         object.__setattr__(self, "calibration",
@@ -219,13 +228,19 @@ class SessionConfig:
 
     def portable(self) -> "SessionConfig":
         """The serializable projection of this config: the calibration
-        data and imported qparams dropped.  ``SessionConfig(**cfg.to_dict())``
-        equals ``cfg.portable()``."""
-        if (self.calibration.data is None
-                and self.calibration.qparams is None):
-            return self
-        return self.replace(calibration=dataclasses.replace(
-            self.calibration, data=None, qparams=None))
+        data and imported qparams dropped, and a live
+        :class:`~repro_torch.engine.autotune.TuningCache` (or a path
+        object) replaced by its path string.  ``SessionConfig(**cfg.to_dict())`` equals
+        ``cfg.portable()``."""
+        changes: Dict[str, Any] = {}
+        if (self.calibration.data is not None
+                or self.calibration.qparams is not None):
+            changes["calibration"] = dataclasses.replace(
+                self.calibration, data=None, qparams=None)
+        tc = self.tune_cache
+        if tc is not None and not isinstance(tc, str):  # a cache or a Path
+            changes["tune_cache"] = str(getattr(tc, "path", tc))
+        return self.replace(**changes) if changes else self
 
     def to_dict(self) -> Dict[str, Any]:
         """JSON-safe dict; ``SessionConfig(**d)`` reconstructs

@@ -1,7 +1,7 @@
 """The LM workload behind the port's session surface (the port of the
 JAX package's ``engine/lm.py``).
 
-    cfg = SessionConfig(backend="cuda-lm",
+    cfg = SessionConfig(backend="cuda-lm", autotune=True,
                         lm=LMConfig(arch="gemma3-4b", smoke=False,
                                     max_context=2048, decode_batch=4))
     sess = LMSession(config=cfg)                  # on cuda:0
@@ -9,15 +9,25 @@ JAX package's ``engine/lm.py``).
 
 The kernel policy is the port's default (the hand-written
 flash-attention and linear-scan kernels) with the axes the ``LMConfig``
-pins.  Autotuning and device meshes are not ported yet.
+pins, or with ``autotune=True`` the fastest prefill of the candidates
+:func:`~repro_torch.engine.autotune.tune_lm_variants` times on the
+session's device and weights (the pinned axes stay fixed; the winner is
+cached on disk, so a repeat session times nothing).  Device meshes are
+not ported yet.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
 
 from ..configs.lm_archs import ARCHS
+from ..core.torch_exec import resolve_device
 from ..models.kernel_policy import DEFAULT_KERNELS
-from .backends import KVCacheHandle, LMBackend, get_backend
+from ..models.stack import init_params
+from .autotune import LMTuneResult, TuningCache, tune_lm_variants
+from .backends import KVCacheHandle, LMBackend, _tree_to, get_backend
 from .config import LMConfig, SessionConfig
 
 
@@ -30,7 +40,8 @@ class LMSession:
     an error.  ``params`` is an optional parameter tree (the port's
     :func:`~repro_torch.models.stack.init_params` layout, e.g. from
     :func:`~repro_torch.models.lm.from_jax_params`); by default the
-    backend draws random weights from ``lm.seed``.
+    session draws random weights from ``lm.seed`` on its device.  The
+    tuner and the backend share the one copy of the weights.
     """
 
     def __init__(self, config=None, *, params=None):
@@ -60,7 +71,24 @@ class LMSession:
             ("attention", lm.attn_variant), ("scan", lm.scan_variant),
             ("block_q", lm.block_q), ("block_k", lm.block_k))
             if value is not None}
-        policy = DEFAULT_KERNELS._replace(**pins).validate()
+        self.tuned: Optional[LMTuneResult] = None
+        if config.autotune:
+            device = resolve_device(config.device)
+            # the one copy of the weights, on the device, that the tuner
+            # times and the backend then serves
+            params = (init_params(self.model_cfg, torch.Generator(
+                device).manual_seed(lm.seed), device) if params is None
+                      else _tree_to(params, device))
+            tc = config.tune_cache
+            self.tuned = tune_lm_variants(
+                self.model_cfg, params, max_context=lm.max_context,
+                batch=lm.decode_batch, prompt=min(16, lm.max_context),
+                cache=tc if isinstance(tc, TuningCache) else TuningCache(tc),
+                iters=max(1, config.tune_iters // 100), fixed=pins,
+                device=device)
+            policy = self.tuned.policy
+        else:
+            policy = DEFAULT_KERNELS._replace(**pins).validate()
         self._backend: LMBackend = backend_cls(
             self.model_cfg, params=params, max_context=lm.max_context,
             decode_batch=lm.decode_batch, policy=policy, seed=lm.seed,
@@ -92,5 +120,8 @@ class LMSession:
 
     @property
     def info(self) -> dict:
-        return {"backend": self.backend_name,
-                "config": self.config.to_dict(), **self._backend.describe()}
+        d = {"backend": self.backend_name, "config": self.config.to_dict()}
+        if self.tuned is not None:
+            d.update(tuned_prefill_us=self.tuned.prefill_us,
+                     tuned_from_cache=self.tuned.from_cache)
+        return {**d, **self._backend.describe()}

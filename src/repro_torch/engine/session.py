@@ -43,6 +43,10 @@ class InferenceSession:
     here unless ``config.optimize=False``).  ``config`` is a
     :class:`SessionConfig` or a dict of its fields; ``None`` is the
     default config (``backend="cuda"`` on ``cuda:0``).
+
+    ``autotune=True`` is accepted and tunes nothing: as in the JAX
+    session for every backend but the C code generator's, the backend is
+    built as is and ``tuned`` stays ``None`` (fp32 and int8 alike).
     """
 
     def __init__(self, graph: CNNGraph, *,
@@ -66,6 +70,7 @@ class InferenceSession:
         self.graph = (passes.optimize(graph, simd_multiple=self.simd_multiple)
                       if config.optimize else graph)
         self.qgraph = None
+        self.tuned = None  # no CNN backend of the port has variants to time
         if config.precision == "int8":
             self._init_int8()
         else:

@@ -71,6 +71,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
     return _rotate(x, positions.float()[..., None] * freqs)
 
 
+def section_ids(sections: Tuple[int, int, int], device) -> torch.Tensor:
+    """The M-RoPE section (0, 1, 2) of each of the ``sum(sections)``
+    frequencies, built on the device from Python ints: no host copy and
+    no size the host must wait for, so a decode step that runs it can be
+    captured in a CUDA graph."""
+    ar = torch.arange(sum(sections), device=device)
+    return (ar >= sections[0]).long() + (ar >= sections[0] + sections[1]
+                                         ).long()
+
+
 def mrope(x: torch.Tensor, positions3: torch.Tensor,
           sections: Tuple[int, int, int], theta: float = 1e4) -> torch.Tensor:
     """Qwen2-VL multimodal RoPE: head_dim/2 freqs split into (t, h, w)
@@ -80,10 +90,7 @@ def mrope(x: torch.Tensor, positions3: torch.Tensor,
     assert sum(sections) == half, (sections, half)
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))          # (half,)
-    pos = positions3.float()[sec_id]                      # (half, B, T)
+    pos = positions3.float()[section_ids(sections, x.device)]  # (half,B,T)
     return _rotate(x, pos.permute(1, 2, 0) * freqs)
 
 
@@ -111,13 +118,15 @@ def gated_mlp(x, p, act: str = "silu"):
 
 # -------------------------------------------------------------- attention ----
 
-def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
+def decode_attention(q, k_cache, v_cache, pos, *, window=None,
                      ring: bool = False, scale=None):
     """One-token attention against a cache (plain torch; the JAX
     package's ``decode_attention_jax``).
 
     q (B,1,H,Dh); k_cache/v_cache (B,S,Hkv,Dh); pos the position of the
-    new token (the cache already holds it at its slot).  ``ring=True``
+    new token, a Python int or a 0-d integer tensor on q's device (the
+    mask is then built on the device); the cache already holds the new
+    token at its slot.  ``ring=True``
     means the cache is a rolling buffer of S slots, slot s holding
     position ``pos - ((pos - s) mod S)``."""
     b, s, hkv, dh = k_cache.shape

@@ -36,8 +36,10 @@ def embed_tokens(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor):
     if tokens_or_embeds.is_floating_point():
         return tokens_or_embeds.to(dtype_of(cfg))
     x = params["embed"][tokens_or_embeds]
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                            device=x.device)
+    # the scale is filled on the device, not copied from the host, so a
+    # decode step that embeds its tokens can be captured
+    return x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                          device=x.device)
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -185,19 +187,32 @@ def make_decode_step(cfg: ModelConfig,
                      kernels: KernelPolicy = DEFAULT_KERNELS):
     """decode(params, caches, tokens (B,1) | embeds, pos) ->
     (logits (B,V), caches, pos+1): one new token against the caches,
-    which are updated in place."""
+    which are updated in place.
+
+    ``pos`` is a Python int or a 0-d int64 tensor on the tokens' device,
+    and ``pos + 1`` comes back of the same kind.  With a tensor the step
+    never waits for the device: the positions are views of it, the
+    cache slot is written by ``index_copy_`` and the attention mask is
+    built from it on the device, so the step can be captured in a CUDA
+    graph and replayed with the position advancing on the card.  Both
+    kinds give the same logits and caches bit for bit."""
     assert not cfg.is_encoder, f"{cfg.name} is encoder-only: no decode step"
 
-    def decode(params, caches, tokens, pos: int):
+    def decode(params, caches, tokens, pos):
         batch = ({"tokens": tokens} if cfg.embed_inputs
                  else {"embeds": tokens})
         b = tokens.shape[0]
-        batch["positions"] = torch.full((b, 1), pos, dtype=torch.int64,
-                                        device=tokens.device)
-        if cfg.mrope_sections is not None:
-            batch["positions3"] = torch.full((3, b, 1), pos,
-                                             dtype=torch.int64,
-                                             device=tokens.device)
+        if isinstance(pos, torch.Tensor):
+            batch["positions"] = pos.reshape(1, 1).expand(b, 1)
+            if cfg.mrope_sections is not None:
+                batch["positions3"] = pos.reshape(1, 1, 1).expand(3, b, 1)
+        else:
+            batch["positions"] = torch.full((b, 1), pos, dtype=torch.int64,
+                                            device=tokens.device)
+            if cfg.mrope_sections is not None:
+                batch["positions3"] = torch.full((3, b, 1), pos,
+                                                 dtype=torch.int64,
+                                                 device=tokens.device)
         logits = forward(params, cfg, batch, kernels, caches=caches,
                          pos=pos)
         return logits[:, -1], caches, pos + 1

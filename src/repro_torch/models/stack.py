@@ -221,7 +221,8 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
                     kind: str, *, positions, cache=None,
                     pos: Optional[int] = None, pos3=None):
     """Train/encode (no cache), prefill (T > 1: writes the cache) and
-    decode (T == 1: writes the new token's slot, reads the cache)."""
+    decode (T == 1: writes the new token's slot, reads the cache; ``pos``
+    a Python int or a 0-d tensor on the device)."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(b, t, h, dh)
@@ -233,8 +234,12 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
         s = cache["k"].shape[1]
         ring = kind == "L" and cfg.window is not None
         slot = pos % s if ring else pos
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
+        if isinstance(slot, torch.Tensor):  # a device position: no sync
+            cache["k"].index_copy_(1, slot.reshape(1), k)
+            cache["v"].index_copy_(1, slot.reshape(1), v)
+        else:
+            cache["k"][:, slot] = k[:, 0]
+            cache["v"][:, slot] = v[:, 0]
         o = decode_attention(q, cache["k"], cache["v"], pos,
                              window=cfg.window if kind == "L" else None,
                              ring=ring)

@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel against its plain version, the
 CNN kernel path against the plain executor, the int8 reference against
-itself on the CPU, and the LM session's kernel policy against its plain
-policy.
+itself on the CPU, the LM session's kernel policy against its plain
+policy, and the LM backend's decode replayed as a CUDA graph against the
+eager decode step (tokens and last logits bit for bit, two handles
+interleaved, a capture from a server's worker thread).
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -759,3 +761,203 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
     parity.hold_params(*({k: v.cpu().numpy() for k, v in leaves_with_paths(
         st[0])} for st in states), marks, parity.adam_step_bound(
             1e-3, 0.1, 1.0), 1e-4, 1e-5)
+
+
+# ------------------------------------------------------ LM decode graph ----
+
+def _lm_backend(arch, dev, batch=2, **changes):
+    """The arch's ``.smoke()`` config (fp32) on the card, as a
+    ``"cuda-lm"`` backend with random weights from seed 0."""
+    import dataclasses
+
+    from repro_torch.configs.lm_archs import ARCHS
+    from repro_torch.engine import CudaLMBackend
+    cfg = dataclasses.replace(ARCHS[arch].smoke(), **changes)
+    return CudaLMBackend(cfg, max_context=40, decode_batch=batch, device=dev)
+
+
+def _graphed_generate(backend, prompts, new):
+    """Greedy tokens and the last logits through ``backend.decode``: the
+    first step eager, the second captured, the rest replayed."""
+    logits, handle = backend.prefill(prompts)
+    toks = [np.argmax(logits, -1).astype(np.int32)]
+    for _ in range(new - 1):
+        logits = backend.decode(handle, toks[-1])
+        toks.append(np.argmax(logits, -1).astype(np.int32))
+    return np.stack(toks, 1), logits, handle
+
+
+def _eager_generate(backend, prompts, new):
+    """The same loop through ``make_decode_step`` with an int position,
+    eager, on the current stream: the oracle."""
+    from repro_torch.models import lm
+    cfg, params = backend.model_cfg, backend.params
+    prefill = lm.make_prefill_step(cfg, backend.max_context, backend.policy)
+    decode = lm.make_decode_step(cfg, backend.policy)
+    with torch.inference_mode():
+        logits, caches, pos = prefill(params, {"tokens": torch.from_numpy(
+            prompts.astype(np.int64)).to(backend.device)})
+        toks = [logits.argmax(-1)]
+        for _ in range(new - 1):
+            logits, caches, pos = decode(params, caches, toks[-1][:, None],
+                                         pos)
+            toks.append(logits.argmax(-1))
+    return (torch.stack(toks, 1).cpu().numpy().astype(np.int32),
+            logits.cpu().numpy())
+
+
+def _prompts(seed, batch, t=12):
+    return np.random.default_rng(seed).integers(
+        0, 256, size=(batch, t)).astype(np.int32)
+
+
+_DECODING = ["gemma3-4b", "gemma3-27b", "h2o-danube-3-4b", "qwen1.5-110b",
+             "qwen2-vl-72b", "rwkv6-7b", "deepseek-moe-16b", "grok-1-314b",
+             "zamba2-2.7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "gemma3-4b"])
+def test_one_decode_step_captures(cuda, arch):
+    """``make_decode_step`` with a device position captured as it stands
+    in ``torch.cuda.graph``: nothing in the step (M-RoPE's section ids,
+    the embedding scale, the positions, the ring slot, the mask) may
+    copy from or wait for the host.  The replay gives the eager step's
+    logits and caches bit for bit."""
+    from repro_torch.configs.lm_archs import ARCHS
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import lm
+    from repro_torch.models.stack import init_params
+    cfg = ARCHS[arch].smoke()
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(_prompts(5, 2).astype(np.int64)).to(cuda)
+    prefill, decode = lm.make_prefill_step(cfg, 40), lm.make_decode_step(cfg)
+    with torch.inference_mode():
+        _, c_eager, p_eager = prefill(params, {"tokens": toks})
+        _, c_graph, p_graph = prefill(params, {"tokens": toks})
+        tok = toks[:, -1:].clone()
+        pos = torch.full((), p_graph, dtype=torch.int64, device=cuda)
+        side = torch.cuda.Stream(cuda)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):  # warm-up, on caches of its own
+            _, c_warm, _ = prefill(params, {"tokens": toks})
+            decode(params, c_warm, tok, pos.clone())
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _, nxt = decode(params, c_graph, tok, pos)
+        graph.replay()
+        want, c_eager, _ = decode(params, c_eager, tok, p_eager)
+        torch.cuda.synchronize(cuda)
+    assert int(nxt) == p_eager + 1
+    assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(c_graph),
+                                                 leaves(c_eager)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,batch,changes", [
+    (a, 2, {}) for a in _DECODING] + [
+    # the MoE at capacity factor 1.25 and batch 4: 1 slot an expert, so
+    # tokens drop in decode, and the graph must drop the same ones
+    ("deepseek-moe-16b", 4, {"capacity_factor": 1.25})])
+def test_graph_decode_equals_eager_decode(cuda, arch, batch, changes):
+    """Prompts of 12 (past the smoke window of 8: the ring caches have
+    wrapped), 8 new tokens: the replayed graph gives the eager loop's
+    tokens and last logits bit for bit, and launches no kernel."""
+    backend = _lm_backend(arch, cuda, batch, **changes)
+    assert backend.describe()["decode"] == "cuda_graph"
+    prompts = _prompts(1, batch)
+    want_toks, want_logits = _eager_generate(backend, prompts, 8)
+
+    def launches():
+        return flash_mod.launches + scan_mod.launches
+
+    before = launches()
+    got_toks, got_logits, handle = _graphed_generate(backend, prompts, 8)
+    run = launches() - before
+    assert handle.graph is not None and handle.pos == 12 + 7
+    np.testing.assert_array_equal(got_toks, want_toks)
+    np.testing.assert_array_equal(got_logits, want_logits)
+    before = launches()
+    backend.prefill(prompts)
+    assert run == launches() - before  # the prefill's, none in decode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-4b", "rwkv6-7b", "zamba2-2.7b",
+                                  "deepseek-moe-16b"])
+def test_interleaved_handles_each_replay_their_own_graph(cuda, arch):
+    """Two handles of one batch size decoded step by step in turns: each
+    gives the tokens of its own run alone (no cache is shared)."""
+    backend = _lm_backend(arch, cuda)
+    pa, pb = _prompts(2, 2), _prompts(3, 2)
+    alone = [_graphed_generate(backend, p, 10)[0] for p in (pa, pb)]
+    (la, ha), (lb, hb) = backend.prefill(pa), backend.prefill(pb)
+    ta, tb = [np.argmax(la, -1).astype(np.int32)], [
+        np.argmax(lb, -1).astype(np.int32)]
+    for _ in range(9):
+        ta.append(np.argmax(backend.decode(ha, ta[-1]), -1).astype(np.int32))
+        tb.append(np.argmax(backend.decode(hb, tb[-1]), -1).astype(np.int32))
+    assert ha.graph is not None and hb.graph is not None
+    assert ha.graph is not hb.graph
+    np.testing.assert_array_equal(np.stack(ta, 1), alone[0])
+    np.testing.assert_array_equal(np.stack(tb, 1), alone[1])
+
+
+@pytest.mark.cuda
+def test_capture_from_a_worker_thread(cuda):
+    """The token server's worker captures and replays while the main
+    thread launches a CNN forward on another stream."""
+    import threading
+
+    from repro_torch.engine import InferenceSession, SessionConfig
+    from repro_torch.serve import LMTokenServer, ServerConfig
+    backend = _lm_backend("gemma3-4b", cuda)
+    prompts = _prompts(4, 2)
+    want, _ = _eager_generate(backend, prompts, 12)
+    cnn = InferenceSession(PAPER_CNNS["ball"](0), config=SessionConfig(
+        backend="cuda"))
+    frames = np.zeros((8,) + tuple(cnn.input_shape), np.float32)
+    stop = threading.Event()
+
+    def busy():
+        while not stop.is_set():
+            cnn.predict(frames)
+
+    other = threading.Thread(target=busy)
+    other.start()
+    try:
+        with LMTokenServer(backend, config=ServerConfig(
+                workers=1, max_batch=2, batch_deadline_ms=500.0,
+                request_timeout_ms=None)) as srv:
+            futs = [srv.submit(p, max_new=12) for p in prompts]
+            got = np.stack([f.result(timeout=300) for f in futs])
+    finally:
+        stop.set()
+        other.join()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_threads_capture_and_replay_through_one_backend(cuda):
+    """Six threads generate through one graphed backend at once, each
+    handle capturing its own graph: every thread gets its run alone."""
+    import threading
+    backend = _lm_backend("gemma3-4b", cuda)
+    prompts = [_prompts(10 + s, 2) for s in range(6)]
+    want = [_graphed_generate(backend, p, 8)[0] for p in prompts]
+    got = [None] * len(prompts)
+
+    def run(i):
+        got[i] = _graphed_generate(backend, prompts[i], 8)[0]
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

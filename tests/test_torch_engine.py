@@ -65,8 +65,12 @@ def test_backends_registered_and_config_validated():
     assert SessionConfig(precision="int8").precision == "int8"
     with pytest.raises(ValueError, match="calibration method"):
         SessionConfig(precision="int8", calibration={"method": "bogus"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SessionConfig(autotune=True)
+    # autotune is accepted; a CNN session has nothing to tune
+    sess = InferenceSession(NETS["ball"](0), config=SessionConfig(
+        backend="torch", device="cpu", autotune=True))
+    assert sess.config.autotune and sess.tuned is None
+    with pytest.raises(ValueError, match="tune_iters"):
+        SessionConfig(tune_iters=0)
     with pytest.raises(ValueError, match="precision"):
         SessionConfig(precision="fp16")
     with pytest.raises(RuntimeError):

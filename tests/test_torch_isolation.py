@@ -60,6 +60,7 @@ def test_chip_smoke_fails_without_a_card():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
     [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cuh"),
+     *ROOT.glob("examples/*_torch.py"), ROOT / "tools" / "time_lm_torch.py",
      ROOT / "chip_smoke.py"]))
 def test_no_source_names_jax_or_repro(path):
     text = (ROOT / path).read_text()

@@ -128,8 +128,9 @@ def test_sessions_refuse_the_other_workload():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SessionConfig(autotune=True)
+    # autotune is ported (tests/test_torch_autotune.py); the mesh is not
+    cfg = SessionConfig(autotune=True, tune_cache="somewhere")
+    assert cfg.autotune and SessionConfig(**cfg.to_dict()) == cfg
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMConfig(mesh_shape=(1, 1))
 
@@ -177,3 +178,37 @@ def test_lm_token_server_validates(gemma):
             srv.submit(np.zeros((2, 3), np.int32))
         with pytest.raises(ValueError, match="max_new"):
             srv.submit(np.zeros(3, np.int32), max_new=0)
+
+
+def test_one_backend_serves_more_threads_than_cores():
+    """More threads than cores generate through one backend at once, with
+    a short switch interval: each gets its sequential run's tokens (the
+    backend runs one call at a time; on the card that keeps another
+    thread's work out of a capture)."""
+    import os
+    import sys
+    import threading
+    sess = LMSession(config=SessionConfig(
+        backend="cuda-lm", device="cpu", lm=LMConfig(
+            arch="gemma3-4b", max_context=MAX_CTX, decode_batch=BATCH)))
+    n = (os.cpu_count() or 1) + 2
+    prompts = [_prompts(seed=s % 4) for s in range(n)]
+    want = [sess.generate(p, STEPS) for p in prompts[:4]]
+    got = [None] * n
+
+    def run(i):
+        got[i] = sess.generate(prompts[i], STEPS)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    for i in range(n):
+        np.testing.assert_array_equal(got[i], want[i % 4])

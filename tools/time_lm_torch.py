@@ -6,7 +6,9 @@ as ``chip_smoke.py``'s ``lm_main`` draws them), this builds the
 warms both up, then runs ``--repeats`` greedy generations of
 ``chip_smoke.py``'s main traffic (batch 4, prompts of 1536, 16 new
 tokens) through each and prints one JSON line per arch: every prefill's
-and decode's seconds and tokens/s, and their medians.
+and decode's seconds and tokens/s, and their medians; and the steady
+step (the median of each generation's decode steps from the third on,
+where a graphed decode replays its captured step).
 
 The package timed is the ``repro_torch`` that ``PYTHONPATH`` names
 first, so two trees are compared within one machine session by running
@@ -31,16 +33,19 @@ BATCH, PROMPT, CONTEXT, NEW = 4, 1536, 2048, 16
 
 
 def timed_generate(torch, np, sess, prompts, max_new):
-    """Seconds of the prefill and of the ``max_new - 1`` decode steps
-    (each ends on the host), as ``chip_smoke.py`` times them."""
+    """Seconds of the prefill, of the ``max_new - 1`` decode steps and of
+    each step (each ends on the host), as ``chip_smoke.py`` times them."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, handle = sess.prefill(prompts)
     t1 = time.perf_counter()
     tok = np.argmax(logits, axis=-1).astype(np.int32)
+    steps = []
     for _ in range(max_new - 1):
+        t2 = time.perf_counter()
         tok = np.argmax(sess.decode(handle, tok), axis=-1).astype(np.int32)
-    return t1 - t0, time.perf_counter() - t1
+        steps.append(time.perf_counter() - t2)
+    return t1 - t0, time.perf_counter() - t1, steps
 
 
 def main() -> int:
@@ -77,8 +82,10 @@ def main() -> int:
         prompts = np.random.default_rng(21).integers(
             0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)
         for sess in sessions.values():
-            sess.generate(prompts[:, :128], 2)
+            sess.generate(prompts[:, :128], 3)
         runs = {name: [] for name in sessions}
+        decode_kind = {name: sess.backend.describe().get("decode", "eager")
+                       for name, sess in sessions.items()}
         for _ in range(args.repeats):
             for name, sess in sessions.items():
                 runs[name].append(timed_generate(torch, np, sess, prompts,
@@ -88,12 +95,17 @@ def main() -> int:
         for name, rs in runs.items():
             pre = [r[0] for r in rs]
             dec = [r[1] for r in rs]
+            steady = [statistics.median(r[2][2:]) for r in rs]
             out[name] = dict(
                 prefill_s=pre, decode_s=dec,
                 prefill_tok_s_median=BATCH * PROMPT / statistics.median(pre),
                 decode_tok_s=[BATCH * (NEW - 1) / d for d in dec],
                 decode_tok_s_median=BATCH * (NEW - 1) / statistics.median(
-                    dec))
+                    dec),
+                first_steps_s=[r[2][:2] for r in rs],
+                steady_step_ms=[x * 1e3 for x in steady],
+                steady_tok_s_median=BATCH / statistics.median(steady),
+                decode=decode_kind[name])
         print(json.dumps(out), flush=True)
         del sessions, params
         torch.cuda.empty_cache()
