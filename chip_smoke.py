@@ -85,7 +85,9 @@ tuned arch); any failure propagates and the script exits non-zero:
 10. lm_time   — per LM kernel at the main path's shapes (batch 4, 1536
    tokens; flash at the four attention shapes above, rwkv6-7b's scan):
    the kernel, its plain version and the library call where one exists,
-   through a replayed CUDA graph; bytes, operations and the bound;
+   through a replayed CUDA graph; bytes, operations and the bound; flash
+   also in fp32 (its ``csrc/flash_attention.cu`` route, which lm_main's
+   fp32 control runs), against SDPA in fp32 at 1e-4;
 11. lm_main  — per arch (gemma3-4b, rwkv6-7b, deepseek-moe-16b,
    zamba2-2.7b) at full published width in bf16 with random weights
    from seed 0: ``LMSession(backend="cuda-lm")`` with the kernel policy
@@ -163,15 +165,37 @@ tuned arch); any failure propagates and the script exits non-zero:
    CPU: loss and grad norm at rtol 1e-4,
    parameters as ``repro_torch.optim.parity`` holds them (rtol 1e-4 /
    atol 1e-5 wherever the two devices' gradients agree to 10%);
-20. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-13
+20. launch   — the launch over ``torch.distributed`` on one rank: the
+   one-rank NCCL group a ``mesh_shape=(1, 1)`` session starts (a
+   ``FileStore`` in a temporary directory, no network); deepseek-moe-16b
+   at full width in bf16 (during its lm phases, on the same weights,
+   wrapped as DTensors with no copy) through ``"cuda-lm"`` with its MoE
+   tensor-parallel and then expert-parallel, lm_main's traffic and
+   graphed decode (each captured step holds the MoE's NCCL collectives):
+   the unmeshed session's tokens, the prefill logits bit-equal for TP
+   and within ``LAUNCH_EP_REL_TOL`` relative L2 for EP, the flash
+   launches of the prefill (28), prefill and steady decode tokens/s
+   beside the unmeshed ones, the busy share, peak memory and the
+   collectives issued; lm-100m's meshed train step, 3 steps bit for bit
+   the unmeshed ones; the four collective wrappers over NCCL keeping
+   their values on one rank and ``compress_allreduce`` over NCCL bit for
+   bit the CPU's round trip (2 steps of error feedback);
+   ``restore(shardings=)`` of lm-100m's parameters onto the card's mesh
+   bit for bit; and the dry-run of gemma3-4b ``train_4k`` on the
+   production 16 x 16 mesh, run after every timed phase in a process of
+   its own with no card (FLOPs, rank 0's argument bytes, collectives);
+21. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-13
    (LM: the kernel policy's run in ``lm_main``, the server's in
-   ``lm_serve``, the tunings of ``lm_tune``), 15 (the CNN example) and 17
-   (the trained ball net served), each counted from
-   0 and read as it ends, max error, and the kernel's, plain version's,
-   bound's and library's ms per robot forward at batch 256 (maxpool2d's
-   from the cold readings) or per LM prefill of the first arch that
-   runs it, and per prefill of each arch that runs it (``per_arch``);
-21. the last line — ``{"ok": true, "device": {...}}``.
+   ``lm_serve``, the tunings of ``lm_tune``), 15 (the CNN example), 17
+   (the trained ball net served) and 20 (the meshed sessions' runs),
+   each counted from 0 and read as it ends, max error, and the kernel's,
+   plain version's, bound's and library's ms per robot forward at batch
+   256 (maxpool2d's from the cold readings) or per LM prefill of the
+   first arch that runs it, and per prefill of each arch that runs it
+   (``per_arch``); for flash also its fp32 route (``fp32_route``:
+   ``csrc/flash_attention.cu`` at the same shapes, beside the plain
+   version and SDPA in fp32, timed in phase 10);
+22. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -202,13 +226,14 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                "src/repro/kernels/conv2d.py:31"),
     "maxpool2d": ("src/repro_torch/kernels/csrc/maxpool2d.cu",
                   "src/repro/kernels/maxpool2d.py:17"),
-    # the main path's bf16 kernel; fp32 inputs take csrc/flash_attention.cu
+    # the main path's bf16 kernel; fp32 inputs take FLASH_FP32_SOURCE
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "src/repro/kernels/flash_attention.py:26"),
     "linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
                     "src/repro/kernels/linear_scan.py:31"),
 }
+FLASH_FP32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # the LM main path: 4 prompts of 1536 tokens (longer than gemma3-4b's
 # window of 1024, so its ring caches roll; 12 of zamba2-2.7b's Mamba2
 # chunks of 128), 16 new tokens
@@ -280,6 +305,15 @@ TRAIN_LOCAL_CASES = [
     (2, 256, 4, 2, 32, 64, 64), (1, 512, 2, 2, 16, 100, 128),
     (1, 128, 4, 1, 32, 32, 32), (1, 128, 4, 2, 80, 32, 64),
     (1, 128, 2, 1, 256, 48, 64)]
+# the launch phase: deepseek-moe-16b's session on a (1, 1) mesh (a one-rank
+# NCCL group), its MoE tensor-parallel then expert-parallel, against the
+# unmeshed session of lm_main on the same weights; at one rank the EP
+# exchange moves each slot to itself, so its logits may differ from the
+# unmeshed ones only by the order of sums (held at 1e-5 relative L2)
+LAUNCH_ARCH, LAUNCH_MOE, LAUNCH_EP_REL_TOL = "deepseek-moe-16b", ("tp", "ep"), 1e-5
+# the dry-run cell traced on the production 16 x 16 mesh, in a process
+# of its own (the fake backend's group, meta tensors; no card)
+DRYRUN_CELL = ("gemma3-4b", "train_4k")
 # the JAX launch script's model and defaults: lm-100m in fp32, batch 8 x 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 200
 # the .smoke() configs trained card against CPU: local attention with
@@ -776,6 +810,153 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
                            metrics=runs[0][0], grad_max_abs_err=grad_err,
                            **held)
     emit("train_smoke", steps=2, rtol=1e-4, atol=1e-5, archs=smoke)
+
+
+def run_dryrun() -> dict:
+    """The dry-run of ``DRYRUN_CELL`` on the production mesh, in a
+    process of its own that sees no card, run after the timed phases so
+    that its CPU work overlaps none of them.  Its record (it must
+    succeed): the mesh, axes, FLOPs, rank 0's argument bytes, the
+    collectives and the seconds."""
+    arch, shape = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out_dir], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                 "CUDA_VISIBLE_DEVICES": ""},
+            capture_output=True, text=True, timeout=900)
+        path = Path(out_dir) / f"{arch}__{shape}__pod.json"
+        if proc.returncode != 0 or not path.exists():
+            raise AssertionError(f"the dry-run failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        r = json.loads(path.read_text())
+    if not r["ok"] or not r["full"]["flops"] > 0 or \
+            not r["full"]["collectives"]["total_bytes"] > 0:
+        raise AssertionError(f"the dry-run's record: {r}")
+    return {k: r[k] for k in ("arch", "shape", "mesh", "axes", "full",
+                              "total_s")}
+
+
+def launch_rest(torch, np, counts, reset_counts) -> dict:
+    """Phase 20 past the meshed sessions (see the module docstring): the
+    meshed lm-100m train step against the unmeshed one, the collectives
+    and ``compress_allreduce`` over NCCL against the CPU, and
+    ``restore(shardings=)`` onto the card's mesh."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.collectives import Collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import MeshPar, to_named
+    from repro_torch.models import lm
+    from repro_torch.models.stack import init_params
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.optim.compress import compress_allreduce
+
+    dev = torch.device("cuda:0")
+    mesh = make_mesh((1, 1))
+    out = {"backend": dist.get_backend(), "world_size": dist.get_world_size()}
+
+    # the meshed lm-100m train step: 3 steps, bit for bit the unmeshed ones
+    cfg = train_mod.LM_100M
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = AdamW(learning_rate=warmup_cosine(3e-4, 20, TRAIN_STEPS))
+    par = MeshPar(mesh, cfg)
+    tc = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+    p0 = tree_map(lambda a: a.to(dev, copy=True), host)
+    p1 = par.place_params(tree_map(lambda a: a.to(dev, copy=True), host))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    states = {"unmeshed": (p0, opt.init(p0), zero.clone()),
+              "meshed": (p1, par.init_optimizer(opt, p1), zero.clone())}
+    steps = {"unmeshed": lm.make_train_step(cfg, opt),
+             "meshed": lm.make_train_step(cfg, opt, par=par)}
+    metrics, secs = {k: [] for k in steps}, {k: [] for k in steps}
+    reset_counts()
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in token_batch(tc, i).items()}
+        for name, fn in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[name], m = fn(states[name], batch)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            metrics[name].append({k: float(v) for k, v in m.items()})
+    train_launches = counts()
+    whole = {name: [t.to_local() if hasattr(t, "to_local") else t
+                    for t in leaves(states[name][:2])] for name in states}
+    equal = all(torch.equal(a, b) for a, b in zip(whole["unmeshed"],
+                                                  whole["meshed"]))
+    if not equal or metrics["unmeshed"] != metrics["meshed"]:
+        raise AssertionError("the meshed lm-100m steps differ from the "
+                             "unmeshed ones")
+    if any(train_launches.values()):
+        raise AssertionError(f"lm-100m training launched {train_launches}")
+    out["train_lm"] = dict(
+        arch=cfg.name, steps=3, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        bit_equal=True, metrics=metrics["meshed"],
+        step_s={k: v for k, v in secs.items()},
+        collectives=par.coll.summary(), launches=train_launches)
+    del states, p0, p1
+    torch.cuda.empty_cache()
+
+    # the wrappers over NCCL on one rank keep their values; then the int8
+    # compressed all-reduce against the CPU's round trip, bit for bit
+    coll = Collectives(mesh)
+    x = torch.randn(6, 8, device=dev)
+    for name, y in (("all_reduce", coll.all_reduce(x, "data")),
+                    ("all_gather", coll.all_gather(x, "model", 1)),
+                    ("reduce_scatter", coll.reduce_scatter(x, "model", 0)),
+                    ("all_to_all", coll.all_to_all(x, "model", 0, 1))):
+        if not torch.equal(y, x):
+            raise AssertionError(f"NCCL {name} on one rank changed values")
+    rng = np.random.default_rng(9)
+    host_g = [{"w": torch.from_numpy(rng.normal(size=(1 << 20,)).astype(
+        np.float32)), "m": torch.from_numpy((rng.normal(size=(64, 48))
+                                             * 1e-3).astype(np.float32)),
+        "z": torch.zeros(8)} for _ in range(2)]
+    res_d = res_c = None
+    group = coll.on("data")
+    for g in host_g:
+        got, res_d = compress_allreduce(tree_map(lambda a: a.to(dev), g),
+                                        res_d, group=group)
+        want, res_c = compress_allreduce(g, res_c)
+        for a, b in zip(leaves((got, res_d)), leaves((want, res_c))):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError("compress_allreduce over NCCL differs "
+                                     "from the CPU round trip")
+    out["collectives"] = dict(wrappers_equal=True, compress_bit_equal=True,
+                              compress_steps=len(host_g),
+                              counts=coll.summary())
+
+    # an elastic restore: lm-100m's parameters written from the CPU,
+    # restored onto the card's mesh as DTensors, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        save(tmp, 1, {"params": host})
+        like = {"params": init_params(cfg, device="meta")}
+        shardings = {"params": to_named(mesh, par.param_specs(
+            like["params"]), like["params"])}
+        t0 = time.perf_counter()
+        got = restore(tmp, 1, like, shardings=shardings)
+        restore_s = time.perf_counter() - t0
+    ok = all(type(v).__name__ == "DTensor" and v.device.type == "cuda"
+             and torch.equal(v.full_tensor().cpu(), h)
+             for (_, v), h in zip(leaves_with_paths(got), leaves(
+                 {"params": host})))
+    if not ok:
+        raise AssertionError("restore(shardings=) onto the card's mesh "
+                             "differs from what was saved")
+    out["restore"] = dict(arch=cfg.name, leaves=len(leaves(got)),
+                          bit_equal=True, on=str(dev), seconds=restore_s)
+    return out
 
 
 def main() -> int:
@@ -1440,6 +1621,7 @@ def main() -> int:
 
     # -- 10. LM kernel time at the main path's shapes --------------------
     lm_rows = {"flash_attention": [], "linear_scan": []}
+    lm_rows_fp32 = []  # flash's fp32 route, csrc/flash_attention.cu
     t = LM_PROMPT
     for layer, (arch, (hq, hkv, d), window, n_layers) in flash_main.items():
         q, k, v = attn_inputs(LM_BATCH, hq, hkv, t, d, bf16, True)
@@ -1456,6 +1638,32 @@ def main() -> int:
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True)
         compare(library(), o, 3e-2, 3e-2, f"library attention {layer}")
+        # the fp32 route (csrc/flash_attention.cu, lm_main's fp32 control)
+        # at the same shape, beside its plain version and SDPA in fp32
+        q32, k32, v32 = (a.float() for a in (q, k, v))
+        o32 = flash_mod.flash_attention_cuda(q32, k32, v32, window=window)
+        if window is None:
+            def library32():
+                return F.scaled_dot_product_attention(
+                    q32, k32, v32, is_causal=True, enable_gqa=True)
+        else:
+            def library32():
+                return F.scaled_dot_product_attention(
+                    q32, k32, v32, attn_mask=mask, enable_gqa=True)
+        compare(library32(), o32, 1e-4, 1e-4, f"library fp32 attention "
+                                                 f"{layer}")
+        lm_rows_fp32.append(dict(
+            arch=arch, layer=layer, window=window, per_prefill=n_layers,
+            q=list(q32.shape), k=list(k32.shape), dtype="float32",
+            ms=graph_ms(torch, lambda: flash_mod.flash_attention_cuda(
+                q32, k32, v32, window=window)),
+            plain_ms=graph_ms(torch, lambda: attention_ref(
+                q32, k32, v32, window=window), reps=3),
+            library_ms=graph_ms(torch, library32),
+            nbytes=nbytes(q32, k32, v32, o32),
+            ops=4 * LM_BATCH * hq * d * int(mask.sum()),
+            ops_rate="fp32 outside the tensor cores, 67 TFLOP/s"))
+        del q32, k32, v32, o32
         lm_rows["flash_attention"].append(dict(
             arch=arch, layer=layer, window=window, per_prefill=n_layers,
             q=list(q.shape), k=list(k.shape), dtype="bfloat16",
@@ -1485,6 +1693,11 @@ def main() -> int:
              r["ops_ms"]) = bound(r["nbytes"], r["ops"],
                                   rate or FP32_OPS_PER_S)
             emit("lm_time", kernel=kernel, **r)
+    for r in lm_rows_fp32:
+        (r["bound_ms"], r["bound_by"], r["bytes_ms"],
+         r["ops_ms"]) = bound(r["nbytes"], r["ops"], FP32_OPS_PER_S)
+        emit("lm_time", kernel="flash_attention", route="fp32",
+             source=FLASH_FP32_SOURCE, **r)
 
     # -- 11-13. the LM main path, serving and tuning, one arch at a time -
     def timed_generate(sess, prompts, max_new):
@@ -1835,6 +2048,88 @@ def main() -> int:
              launches=launches["lm_serve " + arch])
         if arch in LM_TUNE_ARCHS:
             lm_tune(arch, params, prompts)
+        if arch == LAUNCH_ARCH:
+            launch_out["sessions"] = launch_sessions(
+                arch, params, prompts, runs["kernels"],
+                dict(prefill_tok_s=tokens_in / runs["kernels"]["prefill_s"],
+                     steady_decode_tok_s=decode_graph["steady_tok_s"],
+                     device_busy_share=busy_ms / wall_ms))
+
+    def launch_sessions(arch, params, prompts, unmeshed, unmeshed_rates):
+        """The meshed session (``mesh_shape=(1, 1)``: a one-rank NCCL
+        group) on the arch's weights, wrapped as DTensors without a
+        copy, with its MoE tensor-parallel, then expert-parallel: lm_main's
+        traffic (first calls, then one timed generate with the kernels'
+        launches counted from 0), its tokens against the unmeshed
+        session's, its prefill logits bit for bit (TP) or within
+        ``LAUNCH_EP_REL_TOL`` (EP), prefill and steady decode tokens/s,
+        the busy share, peak memory and the collectives it issued."""
+        import torch.distributed as dist
+        out = {"unmeshed": unmeshed_rates}
+        tokens_in = LM_BATCH * LM_PROMPT
+        for moe in LAUNCH_MOE:
+            torch.cuda.reset_peak_memory_stats()
+            sess = LMSession(config=SessionConfig(
+                backend="cuda-lm", lm=LMConfig(
+                    arch=arch, smoke=False, max_context=LM_CONTEXT,
+                    decode_batch=LM_BATCH, mesh_shape=(1, 1))),
+                params=params, moe=moe)
+            be = sess.backend
+            if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+                raise AssertionError(f"the mesh's group is "
+                                     f"{dist.get_backend()} of "
+                                     f"{dist.get_world_size()}")
+            wrapped = all(a.to_local().data_ptr() == b.data_ptr()
+                          for a, b in zip(leaves(be.params), leaves(params)))
+            if not wrapped:
+                raise AssertionError("the meshed session copied the weights")
+            sess.generate(prompts[:, :128], 3)  # first calls and captures
+            reset_counts()
+            be.par.coll.reset()
+            run = timed_generate(sess, prompts, LM_NEW)
+            torch.cuda.synchronize()
+            got = counts()
+            launches[f"lm_launch {arch} {moe}"] = got
+            coll = be.par.coll.summary()
+            want = {k: per_prefill(arch) if k == "flash_attention" else 0
+                    for k in counted}
+            if got != want:
+                raise AssertionError(f"{arch} {moe}: launches {got}, want "
+                                     f"{want}")
+            if not np.array_equal(run["tokens"], unmeshed["tokens"]):
+                raise AssertionError(f"{arch} {moe}: the meshed session's "
+                                     f"tokens differ from the unmeshed one's")
+            rel = rel_l2(run["logits"], unmeshed["logits"])
+            bit_equal = bool(np.array_equal(run["logits"],
+                                            unmeshed["logits"]))
+            if moe == "tp" and not bit_equal:
+                raise AssertionError(f"{arch} tp: prefill logits differ "
+                                     f"from the unmeshed ones (rel {rel})")
+            if rel > LAUNCH_EP_REL_TOL:
+                raise AssertionError(f"{arch} {moe}: prefill logits rel L2 "
+                                     f"{rel} > {LAUNCH_EP_REL_TOL}")
+            busy, wall, top = device_busy(
+                torch, lambda: sess.generate(prompts, LM_NEW))
+            steps = run["steps_s"]
+            out[moe] = dict(
+                mesh=be.describe()["mesh"], backend=dist.get_backend(),
+                decode=be.describe()["decode"],
+                params_wrapped=wrapped, launches=got, collectives=coll,
+                tokens_equal=True, prefill_logits_bit_equal=bit_equal,
+                prefill_logits_rel_l2=rel,
+                last_logits_max_abs_diff=float(np.abs(
+                    run["last_logits"] - unmeshed["last_logits"]).max()),
+                prefill_s=run["prefill_s"],
+                prefill_tok_s=tokens_in / run["prefill_s"],
+                steady_decode_tok_s=LM_BATCH / statistics.median(steps[2:]),
+                decode_tok_s=LM_BATCH * (LM_NEW - 1) / run["decode_s"],
+                warmup_s=steps[0], capture_s=steps[1],
+                device_busy_share=busy / wall, top_device_kernels=top,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            sess.close()
+            del sess, be
+            torch.cuda.empty_cache()
+        return out
 
     def lm_tune(arch, params, prompts):
         """``LMSession(autotune=True)`` at full width on the arch's
@@ -1882,6 +2177,7 @@ def main() -> int:
              cached_launches=again_launches,
              pinned_tokens_equal=True, launches=launches["lm_tune " + arch])
 
+    launch_out = {}
     for arch in LM_ARCHS:
         lm_phases(arch)
         torch.cuda.empty_cache()
@@ -1962,7 +2258,12 @@ def main() -> int:
     # -- 16-19. training ------------------------------------------------
     train_phases(torch, np, counts, reset_counts, launches)
 
-    # -- 20. the kernels line --------------------------------------------
+    # -- 20. the launch --------------------------------------------------
+    launch_out.update(launch_rest(torch, np, counts, reset_counts))
+    launch_out["dryrun"] = run_dryrun()
+    emit("launch", nvidia_smi=smi, **launch_out)
+
+    # -- 21. the kernels line --------------------------------------------
     for phase, got in launches.items():
         want = ([lm_kernel_of[phase.split()[1]]] if phase.startswith("lm_")
                 else ["conv2d", "maxpool2d"])
@@ -2007,6 +2308,12 @@ def main() -> int:
             entry.update(per_arch[archs[0]])
             entry.update(per=f"{archs[0]} prefill", batch=LM_BATCH,
                          tokens=LM_PROMPT, per_arch=per_arch)
+            if kernel == "flash_attention":
+                entry["fp32_route"] = dict(
+                    source=FLASH_FP32_SOURCE, dtype="float32",
+                    per_arch={a: summary([r for r in lm_rows_fp32
+                                          if r["arch"] == a])
+                              for a in archs})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,12 @@ of the JAX package's ``checkpoint/checkpoint.py``).
   ``<dir>/step_<step>``, so a crash mid-write never leaves a partial
   checkpoint where :func:`all_steps` looks;
 * **restart**: :func:`latest_step` + :func:`restore` resume exactly;
-* **bounded**: all but the newest ``keep`` checkpoints are deleted.
+* **bounded**: all but the newest ``keep`` checkpoints are deleted;
+* **elastic**: ``restore(..., shardings=...)`` places every leaf on the
+  *current* mesh (:func:`repro_torch.launch.sharding.place`), so a job
+  restarted on another number of ranks resumes from the same state.
+  ``save`` of a tree of DTensors writes their whole values: every rank
+  calls it (the gathers are collectives) and rank 0 writes.
 
 The format is the reference's: one ``arrays.npz`` keyed by each leaf's
 path (dict keys, list indices and NamedTuple fields by name, joined by
@@ -17,8 +22,7 @@ stored as its bit pattern in the reference's form, a 2-byte void
 :func:`restore` reads every 2-byte void leaf as bf16 bits, so a bf16
 checkpoint of either package restores here bit for bit.  (The
 reference's own ``restore`` cannot cast a ``|V2`` leaf and raises on
-either package's bf16 files.)  The reference's elastic ``shardings``
-argument waits for the port's launch slice.
+either package's bf16 files.)
 """
 from __future__ import annotations
 
@@ -31,10 +35,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core.tree import leaves_with_paths, unflatten
+from ..core.tree import leaves_with_paths, tree_map, unflatten
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _BF16_BITS = np.dtype("V2")  # what numpy writes for a bf16 array
+
+
+def _whole(leaf):
+    """A DTensor's whole value (a collective), other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -48,14 +58,24 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     """Atomically write ``tree`` as checkpoint ``step``; returns its
-    directory."""
+    directory.  DTensor leaves are written whole: in a process group
+    every rank calls this, rank 0 writes, and all return once it has."""
+    import torch.distributed as dist
+    flat = {k: _whole(v) for k, v in leaves_with_paths(tree)}
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        _write(ckpt_dir, step, final, flat, keep)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, final: str, flat, keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
-    final = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = dict(leaves_with_paths(tree))
     arrays = {k: _to_numpy(v) for k, v in flat.items()}
     bf16 = sorted(k for k, v in flat.items()
                   if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16)
@@ -68,7 +88,6 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     else:
         os.replace(tmp, final)
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
@@ -93,11 +112,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like, *, device="cpu"):
+def restore(ckpt_dir: str, step: int, like, *, device="cpu",
+            shardings=None):
     """Checkpoint ``step`` in the structure of ``like`` (a tree of
-    tensors), each leaf a tensor of its ``like`` leaf's dtype on
-    ``device``.  Raises ``ValueError`` when a key of ``like`` is
-    missing or its shape differs."""
+    tensors or DTensors; their global shapes), each leaf a tensor of its
+    ``like`` leaf's dtype on ``device``.  ``shardings``: a tree
+    congruent with ``like`` of
+    :class:`~repro_torch.launch.sharding.NamedSharding` leaves (or None
+    for a plain tensor), each leaf then placed on its mesh as a DTensor
+    on the mesh's device.  Raises ``ValueError`` when a key of ``like``
+    is missing or its shape differs."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         bf16 = set(json.load(f).get("bfloat16", ()))
@@ -120,4 +144,13 @@ def restore(ckpt_dir: str, step: int, like, *, device="cpu"):
             t = torch.from_numpy(np.array(a))
         return t.to(device=device, dtype=want.dtype)
 
-    return unflatten(like, [leaf(k, w) for k, w in flat_like])
+    tree = unflatten(like, [leaf(k, w) for k, w in flat_like])
+    if shardings is None:
+        return tree
+    from ..launch.sharding import place
+
+    def put(t, sh):
+        if sh is None:
+            return t
+        return place(t.to(sh.mesh.device_type), sh.mesh, sh.spec)
+    return tree_map(put, tree, shardings)

@@ -102,7 +102,7 @@ def tune_lm_variants(model_cfg, params, *, max_context: int,
                      batch: int = 1, prompt: int = 16,
                      cache: Optional[TuningCache] = None, iters: int = 3,
                      fixed: Optional[dict] = None,
-                     device=None) -> LMTuneResult:
+                     device=None, par=None) -> LMTuneResult:
     """Time the LM stack's prefill kernel variants and keep the fastest,
     as the JAX package's ``tune_lm_variants`` does: a greedy descent over
     the axes, each skipped when the arch has no such layer or the caller
@@ -121,7 +121,8 @@ def tune_lm_variants(model_cfg, params, *, max_context: int,
     program are timed once: the CUDA flash kernel and ``"reference"``
     ignore the flash tiles, and ``"flash_jax"`` fits its tiles to the
     prompt (``fit_block``).  The record is keyed like the JAX package's,
-    with this package's :func:`device_digest`."""
+    with this package's :func:`device_digest`.  ``par``: the session's
+    mesh context (its prefill is the one timed), as in the reference."""
     dev = resolve_device(device)
     fixed = dict(fixed or {})
     base = DEFAULT_KERNELS._replace(**fixed).validate()
@@ -163,7 +164,7 @@ def tune_lm_variants(model_cfg, params, *, max_context: int,
         if eff in timed:
             return timed[eff]
         step = lm_mod.make_prefill_step(model_cfg, max_len=max_context,
-                                        kernels=pol)
+                                        kernels=pol, par=par)
         with torch.inference_mode():
             step(params, {"tokens": toks})  # the first call, untimed
             sync()

@@ -302,7 +302,7 @@ def _tree_to(tree, device):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree if tree.device == torch.device(device) else tree.to(device)
 
 
 @register_backend("cuda-lm")
@@ -324,11 +324,17 @@ class CudaLMBackend(LMBackend):
     and replays.  The graph reads and writes the handle's caches in
     place and advances the device position; the logits reach the host
     before the next replay.  A capture that fails raises: there is no
-    eager fallback.  On the CPU decode stays eager."""
+    eager fallback.  On the CPU decode stays eager.
+
+    With ``par`` (a :class:`~repro_torch.launch.sharding.MeshPar`) the
+    weights are DTensors placed by its rule tables and every step runs
+    through it; on the card its collectives are NCCL's, issued on the
+    backend's stream, the communicators' first ones eagerly here, before
+    any capture, so a captured decode step holds its collectives."""
 
     def __init__(self, model_cfg, *, params=None, max_context: int = 128,
                  decode_batch: int = 1, policy=None, seed: int = 0,
-                 device=None):
+                 device=None, par=None):
         super().__init__()
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
@@ -338,11 +344,15 @@ class CudaLMBackend(LMBackend):
         if params is None:
             gen = torch.Generator(self.device).manual_seed(seed)
             params = init_params(model_cfg, gen, self.device)
+        self.par = par
         self.params = _tree_to(params, self.device)
+        if par is not None:
+            self.params = par.place_params(self.params)
         self._prefill_fn = lm_mod.make_prefill_step(
-            model_cfg, max_len=self.max_context, kernels=self.policy)
+            model_cfg, max_len=self.max_context, kernels=self.policy, par=par)
         self._decode_fn = (None if model_cfg.is_encoder
-                           else lm_mod.make_decode_step(model_cfg, self.policy))
+                           else lm_mod.make_decode_step(model_cfg, self.policy,
+                                                        par=par))
         self._lock = threading.Lock()
         self._stream = self._pool = self._pool_keeper = None
         if self.device.type == "cuda":
@@ -355,6 +365,8 @@ class CudaLMBackend(LMBackend):
             with torch.cuda.stream(self._stream):
                 self._capture(self._pool_keeper, lambda: torch.zeros(
                     (), device=self.device))
+                if par is not None:  # each axis's communicator, eagerly
+                    par.warm_up(self.device)
             torch.cuda.synchronize(self.device)
 
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
@@ -448,9 +460,16 @@ class CudaLMBackend(LMBackend):
     # ------------------------------------------------- shared contract --
     def predict_batch(self, x: np.ndarray) -> np.ndarray:
         with self._running():
-            return lm_mod.forward(self.params, self.model_cfg,
-                                  {"tokens": self._tokens(x)},
-                                  self.policy).cpu().numpy()
+            tokens = self._tokens(x)
+            if self.par is None:
+                return lm_mod.forward(self.params, self.model_cfg,
+                                      {"tokens": tokens},
+                                      self.policy).cpu().numpy()
+            logits = lm_mod.forward(self.params, self.model_cfg,
+                                    self.par.local_batch({"tokens": tokens}),
+                                    self.policy, par=self.par)
+            return self.par.gather_batch(logits, tokens.shape[0]
+                                         ).cpu().numpy()
 
     def describe(self) -> dict:
         return {
@@ -465,4 +484,5 @@ class CudaLMBackend(LMBackend):
             "kernel_policy": dict(self.policy._asdict()),
             "decode": "cuda_graph" if self._stream is not None else "eager",
             "n_params": lm_mod.param_count(self.model_cfg),
+            "mesh": None if self.par is None else self.par.describe()["mesh"],
         }

@@ -12,10 +12,10 @@ sub-config ``CalibrationConfig`` and its ``lm`` sub-config ``LMConfig``).
 ``device=None`` means the card (``cuda:0``); a session asked for the card
 on a machine without one raises ``RuntimeError``.  ``autotune=True`` times
 the LM kernel variants (:mod:`repro_torch.engine.autotune`) and caches the
-winner in ``tune_cache``.  The C code generator's knobs (simd, unroll,
-threads, fusion, pipeline stages) have no meaning here; device meshes are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP
-item.
+winner in ``tune_cache``; ``LMConfig.mesh_shape`` runs the LM over a
+device mesh (:class:`repro_torch.engine.LMSession`).  The C code
+generator's knobs (simd, unroll, threads, fusion, pipeline stages) have
+no meaning here.
 """
 from __future__ import annotations
 
@@ -106,8 +106,10 @@ class LMConfig:
     left ``None`` take the port's default, the kernels.  ``block_q`` /
     ``block_k`` pin the policy's tiles of ``"flash_jax"``; the CUDA
     kernel's tiles are fixed and masked at the ragged edge, so
-    ``"flash_pallas"`` ignores them.
-    ``mesh_shape`` is not ported yet."""
+    ``"flash_pallas"`` ignores them.  ``mesh_shape`` (e.g. ``(1, 1)``:
+    data, model) serves the LM over a device mesh of that shape, or
+    single-device with a ``RuntimeWarning`` when the process group
+    cannot have that many ranks."""
 
     arch: str = "gemma3-4b"
     smoke: bool = True
@@ -144,12 +146,16 @@ class LMConfig:
             if v is not None and v < 1:
                 raise ValueError(f"{name} {v} < 1")
         if self.mesh_shape is not None:
-            raise NotImplementedError(
-                "lm.mesh_shape (data-parallel prefill over a device mesh) "
-                "is not ported yet: ROADMAP.md Queue 1, item 11")
+            object.__setattr__(self, "mesh_shape",
+                               tuple(int(d) for d in self.mesh_shape))
+            if any(d < 1 for d in self.mesh_shape):
+                raise ValueError(f"mesh_shape {self.mesh_shape}")
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        if d["mesh_shape"] is not None:
+            d["mesh_shape"] = list(d["mesh_shape"])
+        return d
 
 
 def _coerce_lm(v) -> Optional[LMConfig]:

@@ -1,0 +1,642 @@
+"""Sharding rules for parameters, batches and caches, and the
+:class:`MeshPar` context (the port of the JAX package's
+``launch/sharding.py``).
+
+The rule tables are the reference's, entry for entry: data parallelism
+over ``('pod', 'data')``, every weight matrix also split on one dim over
+``data`` (FSDP), heads / ffw / vocab / experts' hidden dim over
+``model``, and any dim that does not divide its axes left whole
+(:func:`_fit`).  A spec is a tuple with one entry per dim: an axis name,
+a tuple of names (split over their product, the first outermost) or
+None; :func:`to_placements` turns it into DTensor placements.  The
+rule functions read a mesh through :func:`~repro_torch.launch.mesh.axis_names`
+and :func:`~repro_torch.launch.mesh.axis_size`, so they take a
+``DeviceMesh`` or a JAX-style stand-in with ``axis_names`` and a
+``shape`` mapping.  Two of the reference's environment knobs are
+arguments here: ``NNCG_MOE`` is ``moe="tp" | "ep"`` and
+``NNCG_ULYSSES`` is ``ulysses``, each defaulting to the reference's
+behaviour with the variable unset.  ``NNCG_ATTN_RULE`` has no
+counterpart: it picks the layout of the reference's GSPMD constraints
+on attention, and the port has no such constraints.
+
+:class:`MeshPar` runs the model on a mesh in PyTorch's idiom, not
+GSPMD's.  Parameters are stored as DTensors placed by
+:func:`param_specs`; a step gathers them whole (over the axes of more
+than one rank; on a dim of one rank the local shard is the whole, as in
+DTensor's own redistribution) and the model sees plain tensors.  The
+exception are the expert weights whose ``model`` split is the one the
+MoE region works on: they are gathered over the data axes only and
+enter the region as this rank's blocks.  The train step sums the
+gradients over the data axes straight into each rank's blocks
+(reduce-scatter over an axis a leaf is split on, all-reduce over one it
+is not) and all-reduces only the squared norms.
+Activations are plain local tensors: the batch is split over the data
+axes and replicated over ``model``, except in the three regions the
+reference writes as explicit ``shard_map``s, which split their work over
+``model`` with explicit collectives: the tensor-parallel MoE
+(:meth:`MeshPar.moe`), the expert-parallel MoE (``moe="ep"``) and
+Ulysses attention (``ulysses=True``).  The dense layers stay replicated
+over ``model`` (the reference's GSPMD splits them; that is not ported).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core.tree import leaves, leaves_with_paths, tree_map, unflatten
+from ..models.config import ModelConfig
+from ..models.moe import moe_mlp, moe_mlp_ep
+from ..models.stack import Par
+from .collectives import Collectives, shard_map
+from .mesh import axis_names, axis_size, dp_axes
+
+MOE_RULES = ("tp", "ep")
+
+
+def _fit(mesh, dim_size: int, axes) -> Optional[Any]:
+    """Return ``axes`` if dim_size divides the axis product, else None."""
+    if axes is None:
+        return None
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    names = tuple(n for n in names if n in axis_names(mesh))
+    if not names:
+        return None
+    total = axis_size(mesh, *names)
+    if dim_size % total:
+        return None
+    return names if len(names) > 1 else names[0]
+
+
+def spec_for(mesh, shape, axes_per_dim) -> tuple:
+    """A spec for ``shape``, dropping any entry that does not divide."""
+    assert len(shape) == len(axes_per_dim)
+    return tuple(_fit(mesh, s, a) for s, a in zip(shape, axes_per_dim))
+
+
+# ------------------------------------------------------------- param rules --
+
+# rules keyed by leaf name -> axes for the *unstacked* trailing dims.
+_PARAM_RULES: Dict[str, Tuple] = {
+    "embed":     ("model", "data"),
+    "head":      ("data", "model"),
+    "wq":        ("data", "model"), "wk": ("data", "model"),
+    "wv":        ("data", "model"), "wo": ("model", "data"),
+    "bq":        ("model",), "bk": ("model",), "bv": ("model",),
+    "wg":        ("data", "model"), "wu": ("data", "model"),
+    "wd":        ("model", "data"),
+    "router":    ("data", None),
+    "shared_wg": ("data", "model"), "shared_wu": ("data", "model"),
+    "shared_wd": ("model", "data"),
+    # mamba2
+    "w_in":      ("data", "model"), "w_out": ("model", "data"),
+    "conv_w":    (None, "model"), "conv_b": ("model",),
+    "w_B":       ("model", None), "w_C": ("model", None),
+    "w_dt":      ("model", None),
+    # rwkv6
+    "w_r":       ("data", "model"), "w_k": ("data", "model"),
+    "w_v":       ("data", "model"), "w_g": ("data", "model"),
+    "w_o":       ("model", "data"),
+    "w_dec_A":   ("data", None), "w_dec_B": (None, "data"),
+    "w_ck":      ("data", "model"), "w_cv": ("model", "data"),
+    "w_cr":      ("data", "model"),
+}
+
+_MOE_3D = {"wg", "wu", "wd"}  # under an (E, ., .) expert stack
+
+
+def _leaf_spec(mesh, path: str, leaf, moe: str = "tp") -> tuple:
+    name = path.split("/")[-1]
+    rule = _PARAM_RULES.get(name)
+    if rule is None:
+        return ()  # norms, scalars, decay vectors: replicated
+    shape = leaf.shape
+    rule = tuple(rule)
+    # MoE expert stacks carry a leading E dim before the matrix dims
+    if name in _MOE_3D and "mlp" in path and len(shape) >= 3 \
+            and len(rule) + 1 <= len(shape):
+        if moe == "ep":
+            # EP-native storage: E over 'model', D over 'data' (FSDP),
+            # full hidden — no per-layer reshard into the EP shard_map
+            rule = ("model", "data", None) if name in ("wg", "wu") \
+                else ("model", None, "data")
+        else:
+            rule = (None,) + rule
+    # stacked group dim(s) in front
+    pad = len(shape) - len(rule)
+    rule = (None,) * pad + rule
+    return spec_for(mesh, shape, rule)
+
+
+def param_specs(mesh, params_shape_tree, moe: str = "tp"):
+    """A spec tree congruent with the params tree (shapes only: tensors
+    on ``meta`` will do)."""
+    if moe not in MOE_RULES:
+        raise ValueError(f"moe {moe!r}; expected one of {MOE_RULES}")
+    return unflatten(params_shape_tree, [
+        _leaf_spec(mesh, path, leaf, moe)
+        for path, leaf in leaves_with_paths(params_shape_tree)])
+
+
+class NamedSharding(NamedTuple):
+    """A mesh and a spec: where :func:`place` puts a tensor."""
+    mesh: Any
+    spec: tuple
+
+
+def to_named(mesh, spec_tree, like):
+    """The :class:`NamedSharding` tree of ``spec_tree`` (congruent with
+    ``like``, whose structure drives the walk: a spec is a tuple)."""
+    return tree_map(lambda _, s: NamedSharding(mesh, s), like, spec_tree)
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def to_placements(mesh, spec) -> list:
+    """DTensor placements of ``spec``, one per mesh axis: ``Shard(d)``
+    on the axes dim d's entry names (nested in mesh order, which is the
+    order the rules name them in), ``Replicate()`` on the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(spec):
+        idx = [names.index(a) for a in _names(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: entry {entry} is not in the "
+                             f"mesh's axis order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def local_shape(mesh, shape, spec) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape``."""
+    return tuple(s // axis_size(mesh, *_names(e)) for s, e in
+                 zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+def local_block(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec`` (a view)."""
+    for dim, entry in enumerate(spec):
+        for a in _names(entry):
+            t = t.chunk(axis_size(mesh, a), dim)[mesh.get_local_rank(a)]
+    return t
+
+
+def place(t: torch.Tensor, mesh, spec):
+    """The whole tensor ``t`` (the same on every rank) as a DTensor
+    placed by ``spec``: this rank keeps its block, copied out when it is
+    a part of ``t`` (so ``t`` can be freed) and ``t`` itself when the
+    block is the whole."""
+    from torch.distributed.tensor import DTensor
+    block = local_block(t, mesh, spec)
+    if block.shape != t.shape:
+        block = block.clone()
+    return DTensor.from_local(block, mesh, to_placements(mesh, spec),
+                              run_check=False)
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def spec_of(mesh, t) -> tuple:
+    """The spec of a DTensor's placements, without trailing whole dims
+    (a plain tensor: ``()``)."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(t):
+        return ()
+    spec = [[] for _ in range(t.ndim)]
+    for name, pl in zip(axis_names(mesh), t.placements):
+        if isinstance(pl, Shard):
+            spec[pl.dim].append(name)
+    out = [None if not e else e[0] if len(e) == 1 else tuple(e)
+           for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+# ---------------------------------------------------------------- batches --
+
+def batch_specs(mesh, cfg: ModelConfig, batch_shapes: Dict[str, Any]):
+    dp = dp_axes(mesh)
+    out = {}
+    for k, sds in batch_shapes.items():
+        if k == "positions3":  # (3, B, T)
+            out[k] = spec_for(mesh, sds.shape, (None, dp, None))
+        elif k == "embeds":    # (B, T, D)
+            out[k] = spec_for(mesh, sds.shape, (dp, None, None))
+        else:                  # tokens/labels/mask/positions (B, T) or (B,1)
+            out[k] = spec_for(mesh, sds.shape, (dp, None))
+    return out
+
+
+def cache_specs(mesh, cfg: ModelConfig, cache_shape_tree):
+    """KV caches: batch over dp; kv-heads over 'model' when divisible,
+    else head_dim.  SSM/RWKV states shard their head dim.  Prologue
+    caches have one fewer leading dim than group caches: the rules are
+    anchored at the tail.  These are the reference's rules; the port's
+    caches follow its activations, split over the data axes and whole
+    over ``model`` (``launch/specs.py: cache_layout``)."""
+    dp = dp_axes(mesh)
+    model_n = axis_size(mesh, "model")
+    kv_on_heads = cfg.n_kv_heads and cfg.n_kv_heads % model_n == 0
+
+    def tail_rule(name, ndim):
+        if name.endswith("k") or name.endswith("v"):   # (...,B,S,Hkv,Dh)
+            tail = ((dp, None, "model", None) if kv_on_heads
+                    else (dp, None, None, "model"))
+        elif "ssm" in name:                             # (...,B,H,N,P)
+            tail = (dp, "model", None, None)
+        elif "conv" in name:                            # (...,B,K-1,d_inner)
+            tail = (dp, None, "model")
+        elif "wkv" in name:                             # (...,B,H,N,N)
+            tail = (dp, "model", None, None)
+        elif "prev" in name:                            # (...,B,D)
+            tail = (dp, None)
+        else:
+            return (None,) * ndim
+        return (None,) * (ndim - len(tail)) + tail
+
+    return unflatten(cache_shape_tree, [
+        spec_for(mesh, leaf.shape, tail_rule(path, leaf.ndim))
+        for path, leaf in leaves_with_paths(cache_shape_tree)])
+
+
+# ------------------------------------------------------------------ MoE -----
+
+def _moe_local_specs(p_tree):
+    """shard_map in_specs for the expert params: TP on the hidden dim."""
+    def leaf(path, t):
+        name = path.split("/")[-1]
+        if name in ("wg", "wu", "shared_wg", "shared_wu"):
+            return (None,) * (t.ndim - 1) + ("model",)
+        if name in ("wd", "shared_wd"):
+            return (None,) * (t.ndim - 2) + ("model", None)
+        return ()
+    return unflatten(p_tree, [leaf(path, t)
+                              for path, t in leaves_with_paths(p_tree)])
+
+
+def _ep_specs(p_tree):
+    """shard_map in_specs of the EP region: the routed expert stacks
+    split on E over 'model'; the router and shared experts whole."""
+    def leaf(path, t):
+        if path.split("/")[-1] in ("wg", "wu", "wd"):
+            return (None,) * (t.ndim - 3) + ("model", None, None)
+        return (None,) * t.ndim
+    return unflatten(p_tree, [leaf(path, t)
+                              for path, t in leaves_with_paths(p_tree)])
+
+
+class MeshPar(Par):
+    """The parallelism context bound to a ``DeviceMesh`` (see the module
+    docstring).  ``moe`` picks the MoE region (``"tp"``: each rank keeps
+    its ``model`` slice of the experts' hidden dim and the outputs are
+    summed; ``"ep"``: tokens split on T over ``model`` and sent to their
+    experts' owners); ``ulysses=True`` runs training and prefill
+    attention as Ulysses sequence parallelism."""
+
+    def __init__(self, mesh, cfg: ModelConfig, *, moe: str = "tp",
+                 ulysses: bool = False):
+        if moe not in MOE_RULES:
+            raise ValueError(f"moe {moe!r}; expected one of {MOE_RULES}")
+        self.mesh = mesh
+        self.cfg = cfg
+        self.dp = dp_axes(mesh)
+        self.moe_rule = moe
+        self.ulysses = bool(ulysses)
+        self.coll = Collectives(mesh)
+
+    @property
+    def model_n(self) -> int:
+        return axis_size(self.mesh, "model")
+
+    def describe(self) -> dict:
+        return {"mesh": {a: axis_size(self.mesh, a)
+                         for a in axis_names(self.mesh)},
+                "moe": self.moe_rule, "ulysses": self.ulysses}
+
+    # ----------------------------------------------------- parameters --
+    def param_specs(self, params):
+        return param_specs(self.mesh, params, self.moe_rule)
+
+    def place_params(self, params):
+        """The whole parameter tree (the same on every rank) as DTensors
+        placed by :meth:`param_specs` (DTensor leaves stay as they are)."""
+        return tree_map(lambda t, s: t if is_dtensor(t) else place(
+            t, self.mesh, s), params, self.param_specs(params))
+
+    def warm_up(self, device) -> None:
+        """One ``all_reduce`` on each axis's group from the current
+        stream: NCCL makes a communicator at its first collective, which
+        must not fall inside a CUDA graph capture."""
+        for a in axis_names(self.mesh):
+            self.coll.all_reduce(torch.zeros(1, device=device), a)
+
+    def region_rule(self, t: Optional[int]) -> str:
+        """The MoE region a sequence of ``t`` runs: ``"ep"`` where the
+        rule asks for it and E and ``t`` divide the model axis, else
+        ``"tp"`` (``t=None``: the rule as it is)."""
+        if self.moe_rule == "ep" and self.cfg.n_experts % self.model_n == 0 \
+                and (t is None or t % self.model_n == 0):
+            return "ep"
+        return "tp"
+
+    def _region_dims(self, rule: str) -> Dict[str, Tuple[int, int]]:
+        """Expert leaf name -> (dim from the end, whole size) of the dim
+        the MoE region of ``rule`` splits over ``model`` (the dims of
+        :func:`_moe_local_specs` and :func:`_ep_specs`)."""
+        cfg = self.cfg
+        if rule == "ep":
+            return {n: (-3, cfg.n_experts) for n in ("wg", "wu", "wd")}
+        fe = cfg.moe_d_ff or cfg.d_ff
+        fs = fe * cfg.n_shared_experts
+        return {"wg": (-1, fe), "wu": (-1, fe), "wd": (-2, fe),
+                "shared_wg": (-1, fs), "shared_wu": (-1, fs),
+                "shared_wd": (-2, fs)}
+
+    def _region_specs(self, p, specs, rule: str):
+        """``specs`` (the region's in-specs of the expert tree ``p``)
+        with ``None`` for each leaf that arrived as this rank's block
+        over ``model`` (its split dim short of the whole): it enters the
+        region as it is."""
+        dims = self._region_dims(rule)
+
+        def leaf(path, t, spec):
+            d = dims.get(path.split("/")[-1])
+            return None if d is not None and t.shape[d[0]] != d[1] else spec
+        return unflatten(p, [leaf(path, t, spec) for (path, t), spec
+                             in spec_leaves(p, specs)])
+
+    def gather(self, t, keep: Tuple[str, ...] = ()):
+        """A DTensor's whole value as a plain tensor: all-gathered over
+        each axis of more than one rank it is split over but those in
+        ``keep`` (on an axis of one rank the local block is the whole);
+        other leaves as they are."""
+        if not is_dtensor(t):
+            return t
+        from torch.distributed.tensor import Shard
+        out = t.to_local()
+        names = axis_names(self.mesh)
+        for i in reversed(range(len(names))):
+            pl = t.placements[i]
+            if isinstance(pl, Shard) and self.mesh.size(i) > 1 \
+                    and names[i] not in keep:
+                out = self.coll.all_gather(out, names[i], pl.dim)
+        return out
+
+    def local_params(self, params, t: Optional[int] = None):
+        """The parameters as plain tensors for a sequence of ``t``: each
+        DTensor gathered whole, but for the expert weights (leaves of a
+        dict that holds a ``router``) whose ``model`` split is on the
+        dim the MoE region of :meth:`region_rule` splits: those keep
+        this rank's block over ``model``."""
+        from torch.distributed.tensor import Shard
+        flat = list(leaves_with_paths(params))
+        moe = {path.rpartition("/")[0] for path, _ in flat
+               if path.split("/")[-1] == "router"}
+        dims = self._region_dims(self.region_rule(t)) if moe else {}
+        model = axis_names(self.mesh).index("model")
+
+        def leaf(path, x):
+            parent, _, name = path.rpartition("/")
+            if is_dtensor(x) and parent in moe and name in dims:
+                pl = x.placements[model]
+                if isinstance(pl, Shard) and pl.dim == x.ndim + dims[name][0]:
+                    return self.gather(x, keep=("model",))
+            return self.gather(x)
+        return unflatten(params, [leaf(path, x) for path, x in flat])
+
+    def init_optimizer(self, optimizer, params):
+        """``optimizer.init`` with the moments placed like ``params``."""
+        state = optimizer.init(tree_map(_local, params))
+        return state._replace(mu=self.wrap_like(state.mu, params),
+                              nu=self.wrap_like(state.nu, params))
+
+    def reduce_grads(self, grads, params):
+        """This rank's blocks of the gradients summed over the data axes.
+        ``grads`` are of :meth:`local_params`' tensors: per-rank partial
+        sums, whole but for the blocks kept over ``model``.  Axis by
+        axis in mesh order (as :func:`local_block` cuts): a data axis a
+        leaf is split on is reduce-scattered on its dim, one it is not
+        split on all-reduced; a ``model`` split is this rank's chunk of
+        the whole gradient (every ``model`` rank holds it), or nothing
+        for a block kept over ``model``.  Axes of one rank are skipped."""
+        from torch.distributed.tensor import Shard
+        names = axis_names(self.mesh)
+
+        def one(g, p):
+            if not is_dtensor(p):
+                for a in self.dp:
+                    if axis_size(self.mesh, a) > 1:
+                        g = self.coll.all_reduce(g, a)
+                return g
+            kept = tuple(g.shape) != tuple(p.shape)
+            for i, a in enumerate(names):
+                if self.mesh.size(i) == 1:
+                    continue
+                pl = p.placements[i]
+                split = isinstance(pl, Shard)
+                if a in self.dp:
+                    g = (self.coll.reduce_scatter(g, a, pl.dim) if split
+                         else self.coll.all_reduce(g, a))
+                elif split and not kept:
+                    g = self.coll._take(g, a, pl.dim)
+            return g
+        with torch.no_grad():
+            return tree_map(one, grads, params)
+
+    def grad_norm(self, grads, params):
+        """The whole gradient tree's global norm from this rank's blocks
+        (:meth:`reduce_grads`): each leaf's sum of squares, all-reduced
+        over the axes it is split on (one vector a mesh axis), then
+        added in the order of ``optim.adamw.global_norm``."""
+        from torch.distributed.tensor import Shard
+        gs, ps = leaves(grads), leaves(params)
+        sq = torch.stack([torch.sum(torch.square(g.float())) for g in gs])
+        for i, a in enumerate(axis_names(self.mesh)):
+            split = [is_dtensor(p) and isinstance(p.placements[i], Shard)
+                     for p in ps]
+            if self.mesh.size(i) > 1 and any(split):
+                mask = torch.tensor(split, device=sq.device)
+                sq = torch.where(mask, self.coll.all_reduce(sq, a), sq)
+        total = 0
+        for s in sq.unbind(0):
+            total = total + s
+        return torch.sqrt(total)
+
+    def optimizer_step(self, optimizer, grads, gnorm, opt_state, params):
+        """The update on this rank's blocks: the gradients' blocks
+        (:meth:`reduce_grads`), the norm of the whole (``gnorm``) for
+        the clip, the blocks of the parameters updated in place and the
+        new moments placed like them."""
+        local = tree_map(_local, params)
+        state = opt_state._replace(mu=tree_map(_local, opt_state.mu),
+                                   nu=tree_map(_local, opt_state.nu))
+        updates, state = optimizer.update(grads, state, local, norm=gnorm)
+        with torch.no_grad():
+            tree_map(lambda p, u: p.copy_((p + u).to(p.dtype)), local,
+                     updates)
+        return state._replace(mu=self.wrap_like(state.mu, params),
+                              nu=self.wrap_like(state.nu, params))
+
+    def wrap_like(self, tree, params):
+        """This rank's blocks ``tree`` as DTensors placed like
+        ``params``' (plain leaves of ``params``: as they are)."""
+        from torch.distributed.tensor import DTensor
+        return tree_map(lambda t, p: DTensor.from_local(
+            t, self.mesh, p.placements, run_check=False)
+            if is_dtensor(p) else t, tree, params)
+
+    # -------------------------------------------------------- batches --
+    def split(self, b: int) -> bool:
+        """Whether a batch of ``b`` is split over the data axes (it
+        stays whole on every data rank when it does not divide)."""
+        return b % axis_size(self.mesh, *self.dp) == 0
+
+    def local_batch(self, batch: Dict[str, torch.Tensor]):
+        """This rank's part of a global batch dict (views)."""
+        shapes = {k: v for k, v in batch.items()}
+        specs = batch_specs(self.mesh, self.cfg, shapes)
+        return {k: local_block(v, self.mesh, specs[k])
+                for k, v in batch.items()}
+
+    def gather_batch(self, t: torch.Tensor, global_b: int) -> torch.Tensor:
+        """Per-rank outputs of a split batch (batch dim first) gathered
+        whole; a batch that was not split is returned as it is."""
+        if not self.split(global_b):
+            return t
+        for a in reversed(self.dp):
+            t = self.coll.gather_out(t, a, 0)
+        return t
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-rank partial sum summed over the data axes (the same on
+        every rank; backward: the identity, so each rank's gradients are
+        its own part's)."""
+        for a in self.dp:
+            x = self.coll.all_reduce(x, a)
+        return x
+
+    # ------------------------------------------------------------ hooks --
+    def constraint(self, x, kind: str):
+        """The identity.  In the reference a GSPMD sharding constraint
+        fixes where a tensor lives, never its values; the port's
+        activations have one layout (split over the data axes, whole over
+        ``model``), so there is nothing to fix."""
+        return x
+
+    def moe(self, x, p, cfg: ModelConfig):
+        """x: (b, T, D) this rank's tokens -> (b, T, D).  EP where the
+        rule asks for it and E and T divide the model axis, else TP.  The
+        reference also requires the global batch to divide the data axes;
+        here the batch was split (or kept whole) before the stack, so the
+        EP region never needs it."""
+        if self.region_rule(x.shape[1]) == "ep":
+            return self._moe_ep(x, p, cfg)
+        coll = self.coll
+
+        def _moe(x_local, p_local):
+            bl, tl, dl = x_local.shape
+            y = moe_mlp(x_local.reshape(bl * tl, dl), p_local,
+                        top_k=cfg.top_k, act=cfg.act,
+                        capacity_factor=cfg.capacity_factor)
+            return coll.all_reduce(y.reshape(bl, tl, dl), "model")
+
+        return shard_map(_moe, coll, ((self.dp, None, None),
+                                      self._region_specs(
+                                          p, _moe_local_specs(p), "tp")),
+                         (self.dp, None, None))(x, p)
+
+    def _moe_ep(self, x, p, cfg: ModelConfig):
+        """Expert-parallel MoE: tokens split on T over 'model', experts
+        on E (full hidden), all_to_all routing."""
+        group = self.coll.on("model")
+
+        def _moe(x_local, p_local):
+            bl, tl, dl = x_local.shape
+            y = moe_mlp_ep(x_local.reshape(bl * tl, dl), p_local,
+                           top_k=cfg.top_k, group=group, act=cfg.act,
+                           capacity_factor=cfg.capacity_factor)
+            return y.reshape(bl, tl, dl)
+
+        return shard_map(_moe, self.coll, ((self.dp, "model", None),
+                                           self._region_specs(
+                                               p, _ep_specs(p), "ep")),
+                         (self.dp, "model", None))(x, p)
+
+    def ulysses_ok(self, cfg: ModelConfig, t: int) -> bool:
+        """Ulysses attention: q heads and T must divide the model axis;
+        kv heads either divide (all_to_all) or are few enough to gather
+        (GQA kv-replication).  Training / prefill only."""
+        model_n = self.model_n
+        if not (self.ulysses and cfg.n_heads and cfg.n_heads % model_n == 0
+                and t % model_n == 0 and cfg.mrope_sections is None):
+            return False
+        if cfg.n_kv_heads % model_n == 0:
+            return True
+        h_loc = cfg.n_heads // model_n
+        g = cfg.n_heads // cfg.n_kv_heads
+        return h_loc % g == 0 or g % h_loc == 0  # group-aligned kv slice
+
+    def ulysses_attention(self, x, p, cfg: ModelConfig, kind: str,
+                          positions):
+        """qkv on T-split activations -> all_to_all (T <-> heads) ->
+        full-T attention on H/model local heads -> all_to_all back.  The
+        weights are whole on every rank."""
+        from ..models.attention_vjp import flash_mha, local_mha
+        from ..models.layers import linear, rope
+        coll, model_n = self.coll, self.model_n
+        h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+        def _attn(x_loc, w, pos):
+            b, t_loc, _ = x_loc.shape
+
+            def proj(name, bias, heads):
+                y = linear(x_loc, w[name], w.get(bias)).reshape(
+                    b, t_loc, heads, dh)
+                if heads % model_n == 0:
+                    # T-split -> head-split (full T locally)
+                    return coll.all_to_all(y, "model", 2, 1)
+                # GQA kv-replication: gather the (small) kv over T, then
+                # keep only the kv group(s) of this rank's q heads
+                y = coll.all_gather(y, "model", 1)
+                h_loc = h // model_n
+                n_kv_loc = max(h_loc // (h // hkv), 1)
+                start = (coll.rank("model") * h_loc) // (h // hkv)
+                return y[:, :, start:start + n_kv_loc]
+
+            q = rope(proj("wq", "bq", h), pos, cfg.rope_theta, cfg.rope_dim)
+            k = rope(proj("wk", "bk", hkv), pos, cfg.rope_theta,
+                     cfg.rope_dim)
+            v = proj("wv", "bv", hkv)
+            if kind == "L" and cfg.window is not None:
+                o = local_mha(q, k, v, cfg.window)
+            else:
+                o = flash_mha(q, k, v, cfg.causal, None)
+            o = coll.all_to_all(o, "model", 1, 2)
+            return linear(o.reshape(b, t_loc, h * dh), w["wo"])
+
+        w_specs = tree_map(lambda t: (None,) * t.ndim, p)
+        return shard_map(_attn, coll, ((self.dp, "model", None), w_specs,
+                                       (self.dp, None)),
+                         (self.dp, "model", None))(x, p, positions)
+
+
+def spec_leaves(tree, specs) -> list:
+    """``((path, leaf), spec)`` of every leaf of ``tree`` with its spec
+    in the congruent ``specs`` (whose tuples are leaves, not nodes)."""
+    out = []
+    tree_map(lambda _, s: out.append(s), tree, specs)
+    return list(zip(leaves_with_paths(tree), out))

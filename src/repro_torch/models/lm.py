@@ -8,6 +8,16 @@ Training runs through :data:`~repro_torch.models.kernel_policy.TRAIN_KERNELS`
 (``"flash_jax"`` attention with its hand-written backward, the
 ``"chunked"`` scan); the CUDA kernels of the serving default have no
 backward and raise under autograd.
+
+Every function takes the reference's ``par``: ``None`` is the
+single-device path, and a :class:`repro_torch.launch.sharding.MeshPar`
+runs it on a mesh.  There the step functions take and return the global
+batch and outputs: they split the batch over the data axes, gather the
+outputs back, and the train step sums the gradients over the data
+axes into each rank's blocks (after the microbatch sum, before the norm
+and AdamW) and updates each rank's blocks of the parameters and
+moments.  ``forward`` and ``loss_fn`` take the rank's own part of the
+batch; the loss is the masked mean over the whole batch.
 """
 from __future__ import annotations
 
@@ -20,9 +30,10 @@ import torch
 from .config import ModelConfig
 from .layers import rms_norm
 from ..core.tree import leaves, tree_map, unflatten
-from ..optim.adamw import AdamWState, global_norm
+from ..optim.adamw import AdamWState
 from .kernel_policy import DEFAULT_KERNELS, TRAIN_KERNELS, KernelPolicy
-from .stack import apply_stack, dtype_of, init_cache, init_params
+from .stack import (DEFAULT_PAR, Par, apply_stack, dtype_of, init_cache,
+                    init_params)
 
 # vocabulary columns unembedded at once in fp32 (bounds the temporary)
 UNEMBED_CHUNK = 32768
@@ -61,43 +72,55 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
             kernels: KernelPolicy = DEFAULT_KERNELS, caches=None,
-            pos: Optional[int] = None, last_only: bool = False
-            ) -> torch.Tensor:
+            pos: Optional[int] = None, last_only: bool = False,
+            par: Optional[Par] = None) -> torch.Tensor:
     """batch: {'tokens' (B,T) int | 'embeds' (B,T,D), optional
     'positions' (B,T), optional 'positions3' (3,B,T)}.  Returns float32
     logits (B, T, V), or (B, 1, V) of the last position when
     ``last_only`` (the same numbers: norm and unembedding are per
-    position).  ``caches`` are updated in place."""
+    position).  ``caches`` are updated in place.  With a mesh ``par``
+    the parameters may be DTensors (gathered here, but for the blocks
+    the MoE region reads as they are) and ``batch`` is this rank's
+    part."""
+    par = par or DEFAULT_PAR
     inp = batch["embeds"] if "embeds" in batch else batch["tokens"]
-    x = embed_tokens(params, cfg, inp)
+    params = par.local_params(params, inp.shape[1])
+    x = par.constraint(embed_tokens(params, cfg, inp), "activations")
     b, t = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = (torch.arange(t, device=x.device)[None]
                      + (0 if pos is None else pos)).expand(b, t)
     x = apply_stack(x, params, cfg, kernels, positions=positions,
-                    caches=caches, pos=pos, pos3=batch.get("positions3"))
+                    caches=caches, pos=pos, pos3=batch.get("positions3"),
+                    par=par)
     if last_only:
         x = x[:, -1:]
-    return unembed(params, cfg, rms_norm(x, params["final_norm"],
-                                         cfg.norm_eps))
+    return par.constraint(unembed(params, cfg, rms_norm(
+        x, params["final_norm"], cfg.norm_eps)), "logits")
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any],
-            kernels: KernelPolicy = TRAIN_KERNELS, z_loss: float = 1e-4):
+            kernels: KernelPolicy = TRAIN_KERNELS, z_loss: float = 1e-4,
+            par: Optional[Par] = None):
     """Next-token cross entropy on ``batch["labels"]`` (B, T), averaged
     over ``batch["mask"]`` (all ones when absent), plus the z-loss
     ``z_loss * mean(logsumexp^2)``; fp32 throughout.  Returns
-    ``(loss, {"xent", "z_loss"})``."""
-    logits = forward(params, cfg, batch, kernels)
+    ``(loss, {"xent", "z_loss"})``.  With a mesh ``par`` ``batch`` is
+    this rank's part, and the sums and the mask's count are summed over
+    the data axes before the division: the loss is the whole batch's,
+    the same on every rank, and this rank's gradients are its part's
+    share of the whole batch's."""
+    logits = forward(params, cfg, batch, kernels, par=par)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
     nll = lse - gold
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    xent = (nll * mask).sum() / denom
-    zl = z_loss * ((lse ** 2) * mask).sum() / denom
+    par = par or DEFAULT_PAR
+    denom = torch.clamp_min(par.data_sum(mask.sum()), 1.0)
+    xent = par.data_sum((nll * mask).sum()) / denom
+    zl = z_loss * par.data_sum(((lse ** 2) * mask).sum()) / denom
     return xent + zl, {"xent": xent, "z_loss": zl}
 
 
@@ -114,18 +137,25 @@ def _split(batch: Dict[str, torch.Tensor], k: int):
 
 
 def make_train_step(cfg: ModelConfig, optimizer,
-                    kernels: KernelPolicy = TRAIN_KERNELS):
+                    kernels: KernelPolicy = TRAIN_KERNELS,
+                    par: Optional[Par] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; state is
     ``(params, opt_state, step)``.  The parameters are updated in place
     (``p.copy_((p + u).to(p.dtype))``, without autograd), so views of
     them stay valid; the caller's tensors need not require grad.
     ``cfg.grad_accum`` K > 1 splits the batch into K microbatches, sums
     their grads in fp32 and divides by K, and averages the loss and its
-    parts, as the reference's scan over microbatches does."""
+    parts, as the reference's scan over microbatches does.  With a mesh
+    ``par`` the state is placed by it (``par.place_params``,
+    ``par.init_optimizer``), each microbatch is split over the data axes
+    (its loss is the whole microbatch's), and the gradients are summed
+    over them into each rank's blocks after the microbatch sum."""
+    par = par or DEFAULT_PAR
 
     def grads_of(params, batch):
         live = [p.detach().requires_grad_() for p in leaves(params)]
-        loss, aux = loss_fn(unflatten(params, live), cfg, batch, kernels)
+        loss, aux = loss_fn(unflatten(params, live), cfg,
+                            par.local_batch(batch), kernels, par=par)
         gs = torch.autograd.grad(loss, live, allow_unused=True)
         gs = [torch.zeros_like(p) if g is None else g
               for p, g in zip(live, gs)]
@@ -134,11 +164,13 @@ def make_train_step(cfg: ModelConfig, optimizer,
 
     def train_step(state, batch):
         params, opt_state, step = state
+        inp = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        whole = par.local_params(params, inp.shape[1])
         k = cfg.grad_accum
         if k > 1:
             gsum, lsum, auxs = None, 0.0, []
             for micro in _split(batch, k):
-                loss, aux, g = grads_of(params, micro)
+                loss, aux, g = grads_of(whole, micro)
                 g = tree_map(lambda x: x.float(), g)
                 gsum = g if gsum is None else tree_map(torch.add, gsum, g)
                 lsum = lsum + loss
@@ -148,43 +180,52 @@ def make_train_step(cfg: ModelConfig, optimizer,
             aux = {key: torch.stack([a[key] for a in auxs]).mean()
                    for key in auxs[0]}
         else:
-            loss, aux, grads = grads_of(params, batch)
-        gnorm = global_norm(grads)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        with torch.no_grad():
-            tree_map(lambda p, u: p.copy_((p + u).to(p.dtype)), params,
-                     updates)
+            loss, aux, grads = grads_of(whole, batch)
+        grads = par.reduce_grads(grads, params)
+        gnorm = par.grad_norm(grads, params)
+        opt_state = par.optimizer_step(optimizer, grads, gnorm, opt_state,
+                                       params)
         metrics = {"loss": loss, **aux, "grad_norm": gnorm}
         return (params, opt_state, step + 1), metrics
 
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, kernels: KernelPolicy = TRAIN_KERNELS):
+def make_eval_step(cfg: ModelConfig, kernels: KernelPolicy = TRAIN_KERNELS,
+                   par: Optional[Par] = None):
+    par = par or DEFAULT_PAR
+
     def eval_step(params, batch):
         with torch.no_grad():
-            loss, aux = loss_fn(params, cfg, batch, kernels)
+            loss, aux = loss_fn(params, cfg, par.local_batch(batch), kernels,
+                                par=par)
         return {"loss": loss, **aux}
     return eval_step
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int,
-                      kernels: KernelPolicy = DEFAULT_KERNELS):
-    """prefill(params, batch) -> (last_logits (B,V), caches, next_pos)."""
+                      kernels: KernelPolicy = DEFAULT_KERNELS,
+                      par: Optional[Par] = None):
+    """prefill(params, batch) -> (last_logits (B,V), caches, next_pos).
+    With a mesh ``par`` the caches are this rank's part of the batch."""
+    par = par or DEFAULT_PAR
 
     def prefill(params, batch):
         inp = batch["embeds"] if "embeds" in batch else batch["tokens"]
         b, t = inp.shape[:2]
-        caches = init_cache(cfg, b, max_len, inp.device)
-        logits = forward(params, cfg, batch, kernels, caches=caches, pos=0,
-                         last_only=True)
-        return logits[:, -1], caches, t
+        local = par.local_batch(batch)
+        b_loc = local["embeds" if "embeds" in local else "tokens"].shape[0]
+        caches = init_cache(cfg, b_loc, max_len, inp.device)
+        logits = forward(params, cfg, local, kernels, caches=caches, pos=0,
+                         last_only=True, par=par)
+        return par.gather_batch(logits[:, -1], b), caches, t
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig,
-                     kernels: KernelPolicy = DEFAULT_KERNELS):
+                     kernels: KernelPolicy = DEFAULT_KERNELS,
+                     par: Optional[Par] = None):
     """decode(params, caches, tokens (B,1) | embeds, pos) ->
     (logits (B,V), caches, pos+1): one new token against the caches,
     which are updated in place.
@@ -197,10 +238,13 @@ def make_decode_step(cfg: ModelConfig,
     graph and replayed with the position advancing on the card.  Both
     kinds give the same logits and caches bit for bit."""
     assert not cfg.is_encoder, f"{cfg.name} is encoder-only: no decode step"
+    par = par or DEFAULT_PAR
 
     def decode(params, caches, tokens, pos):
-        batch = ({"tokens": tokens} if cfg.embed_inputs
-                 else {"embeds": tokens})
+        b_global = tokens.shape[0]
+        key = "tokens" if cfg.embed_inputs else "embeds"
+        batch = par.local_batch({key: tokens})
+        tokens = batch[key]
         b = tokens.shape[0]
         if isinstance(pos, torch.Tensor):
             batch["positions"] = pos.reshape(1, 1).expand(b, 1)
@@ -214,8 +258,8 @@ def make_decode_step(cfg: ModelConfig,
                                                  dtype=torch.int64,
                                                  device=tokens.device)
         logits = forward(params, cfg, batch, kernels, caches=caches,
-                         pos=pos)
-        return logits[:, -1], caches, pos + 1
+                         pos=pos, par=par)
+        return par.gather_batch(logits[:, -1], b_global), caches, pos + 1
 
     return decode
 

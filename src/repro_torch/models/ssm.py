@@ -180,7 +180,8 @@ def _steps(rf, kf, vf, decay, u, s):
 
 def rwkv6_time_mix(x, p, *, head_dim: int,
                    state: Optional[RWKVState] = None,
-                   scan: str = "linear_scan", chunk: int = 64):
+                   scan: str = "linear_scan", chunk: int = 64,
+                   constraint=None):
     """RWKV6 time mix with data-dependent per-channel decay.  Returns
     ``(out, final wkv state, last token)``.
 
@@ -194,7 +195,9 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
     single-step decode (T == 1) run the plain step loop; under grad mode
     that loop runs as checkpointed chunks of ``fit_block(T, chunk)``
     steps, as the reference's scan of rematerialized chunks does (the
-    same numbers, with O(T / chunk) saved states)."""
+    same numbers, with O(T / chunk) saved states).  ``constraint`` is
+    applied to r, k, v and the decay, where the reference shards the
+    heads (the port's ``Par.constraint``: the identity)."""
     b, t, d = x.shape
     n = head_dim
     h = d // n
@@ -215,6 +218,8 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
     logw = p["w_dec0"].float() + dd.float()
     decay = torch.exp(-torch.exp(logw)).reshape(b, t, h, n)   # (0,1)
     u = p["u_bonus"].reshape(h, n).float()
+    if constraint is not None:
+        r, k, v, decay = (constraint(a) for a in (r, k, v, decay))
     kf, vf, rf = k.float(), v.float(), r.float()
     s0 = (torch.zeros((b, h, n, n), dtype=torch.float32, device=x.device)
           if state is None else state.wkv)

@@ -19,6 +19,12 @@ Decode caches are updated in place (the JAX package returns new ones):
 prefill and each decode step write their keys, values and recurrent
 state into the tensors of the cache dict they are given, so a step
 allocates no second copy of a multi-GB cache.
+
+The ``par`` argument is the reference's parallelism context: ``None``
+(:data:`DEFAULT_PAR`) is the single-device no-op, and
+:class:`repro_torch.launch.sharding.MeshPar` overrides the hooks of
+:class:`Par` to run the MoE and Ulysses attention across a mesh.  The
+model code imports no mesh machinery.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.tree import tree_map
 from ..kernels import ops, ref
 from .attention_vjp import flash_mha, local_mha
 from .config import ModelConfig
@@ -50,6 +57,63 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
+
+
+class Par:
+    """The parallelism context's hooks, as the single-device no-op."""
+
+    def constraint(self, x, kind: str):
+        """Where the reference pins a layout: the identity."""
+        return x
+
+    def moe(self, x, p, cfg: ModelConfig):
+        """The MoE MLP over the (B*T, D) tokens of x (B, T, D)."""
+        b, t, d = x.shape
+        return moe_mlp(x.reshape(b * t, d), p, top_k=cfg.top_k, act=cfg.act,
+                       capacity_factor=cfg.capacity_factor).reshape(b, t, d)
+
+    def ulysses_ok(self, cfg: ModelConfig, t: int) -> bool:
+        return False
+
+    def local_params(self, params, t: Optional[int] = None):
+        """The parameters as the model reads them, for a sequence of
+        ``t``: plain tensors."""
+        return params
+
+    def local_batch(self, batch):
+        """This rank's part of a global batch dict."""
+        return batch
+
+    def gather_batch(self, t, global_b: int):
+        """Per-rank outputs (batch dim first) of a batch of ``global_b``
+        gathered whole."""
+        return t
+
+    def data_sum(self, x):
+        """A per-rank partial sum summed over the data axes."""
+        return x
+
+    def reduce_grads(self, grads, params):
+        """The gradients of :meth:`local_params`' tensors as the update
+        takes them."""
+        return grads
+
+    def grad_norm(self, grads, params):
+        """The global norm of the whole gradient tree."""
+        from ..optim.adamw import global_norm
+        return global_norm(grads)
+
+    def optimizer_step(self, optimizer, grads, gnorm, opt_state, params):
+        """One ``optimizer`` update of ``params`` in place (``gnorm``:
+        the gradients' global norm); returns the new optimizer state."""
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        with torch.no_grad():
+            tree_map(lambda p, u: p.copy_((p + u).to(p.dtype)), params,
+                     updates)
+        return opt_state
+
+
+DEFAULT_PAR = Par()
 
 
 # ================================================================= init =====
@@ -219,16 +283,24 @@ def _prefill_attention(q, k, v, cfg: ModelConfig, kind: str,
 
 def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
                     kind: str, *, positions, cache=None,
-                    pos: Optional[int] = None, pos3=None):
+                    pos: Optional[int] = None, pos3=None,
+                    par: Optional[Par] = None):
     """Train/encode (no cache), prefill (T > 1: writes the cache) and
     decode (T == 1: writes the new token's slot, reads the cache; ``pos``
-    a Python int or a 0-d tensor on the device)."""
+    a Python int or a 0-d tensor on the device).  Without a cache a
+    ``par`` that takes Ulysses attention runs it instead."""
+    par = par or DEFAULT_PAR
     b, t, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cache is None and par.ulysses_ok(cfg, t):
+        return par.ulysses_attention(x, p, cfg, kind, positions)
     q = linear(x, p["wq"], p.get("bq")).reshape(b, t, h, dh)
     k = linear(x, p["wk"], p.get("bk")).reshape(b, t, hkv, dh)
     v = linear(x, p["wv"], p.get("bv")).reshape(b, t, hkv, dh)
     q, k = _apply_rope(cfg, q, k, positions, pos3)
+    q = par.constraint(q, "heads")
+    k = par.constraint(k, "kv_heads")
+    v = par.constraint(v, "kv_heads")
 
     if cache is not None and t == 1:
         s = cache["k"].shape[1]
@@ -253,28 +325,28 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
                 cache["k"].copy_(torch.roll(k[:, -s:], t % s, dims=1))
                 cache["v"].copy_(torch.roll(v[:, -s:], t % s, dims=1))
         o = _prefill_attention(q, k, v, cfg, kind, kernels)
+    o = par.constraint(o, "heads")
     return linear(o.reshape(b, t, h * dh), p["wo"])
 
 
-def mlp_block(x, p, cfg: ModelConfig, kind: str):
-    """The MoE MLP over the (B*T, D) tokens in an MoE config's non-``S``
-    blocks, the dense gated MLP otherwise."""
+def mlp_block(x, p, cfg: ModelConfig, kind: str, par: Optional[Par] = None):
+    """The MoE MLP (``par.moe``: over the (B*T, D) tokens) in an MoE
+    config's non-``S`` blocks, the dense gated MLP otherwise."""
     if cfg.n_experts and kind != "S":
-        b, t, d = x.shape
-        return moe_mlp(x.reshape(b * t, d), p, top_k=cfg.top_k, act=cfg.act,
-                       capacity_factor=cfg.capacity_factor).reshape(b, t, d)
+        return (par or DEFAULT_PAR).moe(x, p, cfg)
     return gated_mlp(x, p, cfg.act)
 
 
 def apply_block(x, kind: str, p, cfg: ModelConfig,
                 kernels: KernelPolicy = DEFAULT_KERNELS, *, positions,
-                cache=None, pos=None, pos3=None):
+                cache=None, pos=None, pos3=None, par: Optional[Par] = None):
+    par = par or DEFAULT_PAR
     if kind in ("A", "L", "S"):
         x = x + attention_block(
             rms_norm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg, kernels, kind,
-            positions=positions, cache=cache, pos=pos, pos3=pos3)
+            positions=positions, cache=cache, pos=pos, pos3=pos3, par=par)
         return x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
-                             cfg, kind)
+                             cfg, kind, par)
     if kind == "M":
         h, state = mamba2_mix(rms_norm(x, p["ln1"], cfg.norm_eps), p["mamba"],
                               ssm_state=cfg.ssm_state,
@@ -286,7 +358,8 @@ def apply_block(x, kind: str, p, cfg: ModelConfig,
     if kind == "R":
         h, wkv, prev_tm = rwkv6_time_mix(
             layer_norm(x, p["ln1"], p["ln1b"]), p["rwkv"],
-            head_dim=cfg.ssm_head_dim, state=cache, scan=kernels.scan)
+            head_dim=cfg.ssm_head_dim, state=cache, scan=kernels.scan,
+            constraint=lambda a: par.constraint(a, "ssm_heads"))
         x = x + h
         h, prev_cm = rwkv6_channel_mix(
             layer_norm(x, p["ln2"], p["ln2b"]), p["rwkv"],
@@ -319,7 +392,7 @@ def stack_blocks(params, cfg: ModelConfig, caches=None) -> List[tuple]:
 
 def apply_stack(x, params, cfg: ModelConfig,
                 kernels: KernelPolicy = DEFAULT_KERNELS, *, positions,
-                caches=None, pos=None, pos3=None):
+                caches=None, pos=None, pos3=None, par: Optional[Par] = None):
     """Run the full layer stack, prefill attention and the RWKV scan
     through ``kernels``; ``caches`` (if given) are updated in place.
     Returns the final activations.  With ``cfg.remat == "full"`` and
@@ -327,13 +400,15 @@ def apply_stack(x, params, cfg: ModelConfig,
     rematerializes each block: the backward replays one block at a time,
     so the live saved tensors are one block's, not the whole stack's."""
     kernels.validate()
+    par = par or DEFAULT_PAR
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for kind, p, c in stack_blocks(params, cfg, caches):
+        x = par.constraint(x, "activations")
         if remat:
             x = checkpoint(apply_block, x, kind, p, cfg, kernels,
                            positions=positions, cache=c, pos=pos, pos3=pos3,
-                           use_reentrant=False)
+                           par=par, use_reentrant=False)
         else:
             x = apply_block(x, kind, p, cfg, kernels, positions=positions,
-                            cache=c, pos=pos, pos3=pos3)
+                            cache=c, pos=pos, pos3=pos3, par=par)
     return x

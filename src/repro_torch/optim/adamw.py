@@ -70,15 +70,18 @@ class AdamW:
             step=torch.zeros((), dtype=torch.int32, device=device),
             mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
-    def update(self, grads, state: AdamWState, params):
-        """-> (updates, new state).  Runs without recording autograd."""
+    def update(self, grads, state: AdamWState, params, norm=None):
+        """-> (updates, new state).  Runs without recording autograd.
+        ``norm``: the global norm of the whole gradient tree, when
+        ``grads``, ``state`` and ``params`` are one rank's blocks of
+        theirs (the meshed train step); by default ``global_norm(grads)``."""
         with torch.no_grad():
-            return self._update(grads, state, params)
+            return self._update(grads, state, params, norm)
 
-    def _update(self, grads, state: AdamWState, params):
+    def _update(self, grads, state: AdamWState, params, norm=None):
         step = state.step + 1
         if self.clip_norm is not None:
-            gn = global_norm(grads)
+            gn = global_norm(grads) if norm is None else norm
             scale = torch.clamp_max(self.clip_norm / (gn + 1e-9), 1.0)
             grads = tree_map(lambda g: g.float() * scale, grads)
         else:

@@ -128,11 +128,14 @@ def test_sessions_refuse_the_other_workload():
 
 
 def test_unported_options_raise():
-    # autotune is ported (tests/test_torch_autotune.py); the mesh is not
+    # autotune and the mesh are ported (tests/test_torch_autotune.py,
+    # tests/test_torch_launch_train.py): both configs round-trip, and a
+    # mesh shape is validated as the JAX package validates it
     cfg = SessionConfig(autotune=True, tune_cache="somewhere")
     assert cfg.autotune and SessionConfig(**cfg.to_dict()) == cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMConfig(mesh_shape=(1, 1))
+    assert LMConfig(mesh_shape=[1, 1]).mesh_shape == (1, 1)
+    with pytest.raises(ValueError, match="mesh_shape"):
+        LMConfig(mesh_shape=(0, 2))
 
 
 def test_the_card_is_the_default_device():

@@ -1,0 +1,212 @@
+"""What each rank of a spawned world runs for ``tests/test_torch_launch*.py``
+(imports no JAX: the children import only this module, torch and the
+port).  Inputs arrive as numpy arrays and trees, results leave as numpy.
+``suite(rank, tasks)`` runs a list of ``(key, job name, kwargs)`` in one
+world and returns ``{key: result}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+_MESHES = {}
+
+
+def mesh(shape):
+    """One DeviceMesh per shape for the process's life (its subgroups are
+    made once, by every rank)."""
+    from repro_torch.launch.mesh import make_mesh
+    shape = tuple(shape)
+    if shape not in _MESHES:
+        _MESHES[shape] = make_mesh(shape, device_type="cpu")
+    return _MESHES[shape]
+
+
+def _t(tree):
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_t(v) for v in tree)
+    return torch.from_numpy(np.array(tree))
+
+
+def _np_flat(tree):
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.launch.sharding import is_dtensor
+    return {k: (v.full_tensor() if is_dtensor(v) else v).detach().numpy()
+            for k, v in leaves_with_paths(tree)}
+
+
+def suite(rank, tasks):
+    return {key: globals()[job](rank, **kw) for key, job, kw in tasks}
+
+
+# ------------------------------------------------------------------ jobs --
+
+def moe_ep(rank, x, p, top_k, capacity_factor):
+    """``moe_mlp_ep`` on this rank's tokens ``x[rank]`` and experts."""
+    from repro_torch.launch.collectives import Collectives
+    from repro_torch.models.moe import moe_mlp_ep
+    n = x.shape[0]  # the ranks' token blocks
+    m = mesh((1, n))
+    e_loc = p["wg"].shape[0] // n
+    local = {k: torch.from_numpy(np.array(
+        v[rank * e_loc:(rank + 1) * e_loc] if k in ("wg", "wu", "wd") else v))
+        for k, v in p.items()}
+    coll = Collectives(m)
+    with torch.no_grad():
+        y = moe_mlp_ep(torch.from_numpy(x[rank]), local, top_k=top_k,
+                       group=coll.on("model"),
+                       capacity_factor=capacity_factor)
+    return y.numpy()
+
+
+def _cfg(arch, over):
+    from repro_torch.configs.lm_archs import ARCHS
+    return dataclasses.replace(ARCHS[arch].smoke(), **over)
+
+
+def variant(rank, arch, over, shape, moe, ulysses, params, batch):
+    """The meshed forward's whole logits, the unmeshed forward's, the
+    collectives the meshed one issued, and the shapes of the parameters
+    as the meshed forward reads them."""
+    from repro_torch.launch.sharding import MeshPar
+    from repro_torch.models import lm
+    cfg = _cfg(arch, over)
+    p = lm.from_jax_params(cfg, params)
+    par = MeshPar(mesh(shape), cfg, moe=moe, ulysses=ulysses)
+    placed = par.place_params(p)
+    b = _t(batch)
+    n, t = next(iter(b.values())).shape[:2]
+    with torch.no_grad():
+        y = par.gather_batch(lm.forward(placed, cfg, par.local_batch(b),
+                                        par=par), n)
+        y0 = lm.forward(p, cfg, b)
+        from repro_torch.core.tree import leaves_with_paths
+        shapes = {k: tuple(v.shape) for k, v in
+                  leaves_with_paths(par.local_params(placed, t))}
+    return {"meshed": y.numpy(), "unmeshed": y0.numpy(),
+            "collectives": par.coll.summary(), "local_shapes": shapes}
+
+
+def _meshed_grads(par, cfg, placed, b):
+    """The gradients the meshed train step takes (the mean of its
+    ``cfg.grad_accum`` microbatches', reduced by
+    :meth:`MeshPar.reduce_grads`), each leaf's whole value."""
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.models import lm
+    t = next(iter(b.values())).shape[1]
+    whole = par.local_params(placed, t)
+    k, gsum = cfg.grad_accum, None
+    for micro in lm._split(b, k):
+        live = [x.detach().requires_grad_() for x in leaves(whole)]
+        loss, _ = lm.loss_fn(unflatten(whole, live), cfg,
+                             par.local_batch(micro), par=par)
+        g = [x.float() for x in torch.autograd.grad(loss, live)]
+        gsum = g if gsum is None else [a + c for a, c in zip(gsum, g)]
+    g = par.reduce_grads(unflatten(whole, [x / k for x in gsum]), placed)
+    return par.wrap_like(g, placed)
+
+
+def region_grads(rank, arch, over, shape, moe, ulysses, params, batch):
+    """The loss's gradients through the meshed forward (every rank's
+    whole gradient tree) and through the unmeshed one."""
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.launch.sharding import MeshPar
+    from repro_torch.models import lm
+    cfg = _cfg(arch, over)
+    p = lm.from_jax_params(cfg, params)
+    par = MeshPar(mesh(shape), cfg, moe=moe, ulysses=ulysses)
+    b = _t(batch)
+    live = [t.detach().requires_grad_() for t in leaves(p)]
+    loss, _ = lm.loss_fn(unflatten(p, live), cfg, b)
+    g = unflatten(p, list(torch.autograd.grad(loss, live)))
+    return {"meshed": _np_flat(_meshed_grads(par, cfg, par.place_params(p),
+                                             b)),
+            "unmeshed": _np_flat(g)}
+
+
+def train(rank, arch, over, shape, state, batches, lr):
+    """Steps of the meshed train step from the carried JAX train state:
+    after each, the summed gradients, the metrics, and the whole
+    parameters and moments."""
+    from repro_torch.launch.sharding import MeshPar
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, warmup_cosine
+    cfg = _cfg(arch, over)
+    par = MeshPar(mesh(shape), cfg)
+    params, opt_state, step = lm.from_jax_train_state(cfg, state)
+    opt = AdamW(learning_rate=warmup_cosine(*lr))
+    placed = par.place_params(params)
+    opt_state = opt_state._replace(mu=par.place_params(opt_state.mu),
+                                   nu=par.place_params(opt_state.nu))
+    train_step = lm.make_train_step(cfg, opt, par=par)
+    out = []
+    for nb in batches:
+        b = _t(nb)
+        # the gradients the step sums, for the parity marks
+        g = _meshed_grads(par, cfg, placed, b)
+        (placed, opt_state, step), m = train_step(
+            (placed, opt_state, step), b)
+        out.append({"grads": _np_flat(g),
+                    "metrics": {k: float(v) for k, v in m.items()},
+                    "params": _np_flat(placed),
+                    "mu": _np_flat(opt_state.mu),
+                    "nu": _np_flat(opt_state.nu)})
+    return out
+
+
+def compress(rank, grads, steps):
+    """``compress_allreduce`` over the world's ranks (a 1-D 'pod' mesh),
+    ``steps`` times with error feedback, on this rank's gradients."""
+    from repro_torch.launch.collectives import Collectives
+    from repro_torch.optim.compress import compress_allreduce
+    from repro_torch.launch.mesh import make_mesh
+    n = next(iter(grads.values()))[0].shape[0]  # the ranks' gradients
+    key = ("pod", n)
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh((n,), axes=("pod",), device_type="cpu")
+    group = Collectives(_MESHES[key]).on("pod")
+    residual, out = None, []
+    for i in range(steps):
+        g = {k: torch.from_numpy(np.array(v[i][rank])) for k, v in
+             grads.items()}
+        mean, residual = compress_allreduce(g, residual, group=group)
+        out.append({"mean": {k: v.numpy() for k, v in mean.items()},
+                    "residual": {k: v.numpy() for k, v in residual.items()}})
+    return out
+
+
+def save_state(rank, arch, shape, seed, ckpt_dir):
+    """The seeded parameters placed on ``shape`` and saved (rank 0
+    writes the whole values)."""
+    from repro_torch.checkpoint import save
+    from repro_torch.launch.sharding import MeshPar
+    from repro_torch.models.stack import init_params
+    cfg = _cfg(arch, {})
+    par = MeshPar(mesh(shape), cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    save(ckpt_dir, 1, {"params": par.place_params(params)})
+    return True
+
+
+def restore_state(rank, arch, shape, ckpt_dir):
+    """The checkpoint restored onto ``shape`` by its param specs: each
+    leaf's whole value, and this rank's block shapes."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.launch.sharding import MeshPar, to_named
+    from repro_torch.models.stack import init_params
+    cfg = _cfg(arch, {})
+    m = mesh(shape)
+    par = MeshPar(m, cfg)
+    like = {"params": init_params(cfg, device="meta")}
+    sh = {"params": to_named(m, par.param_specs(like["params"]),
+                             like["params"])}
+    got = restore(ckpt_dir, 1, like, shardings=sh)
+    from repro_torch.core.tree import leaves_with_paths
+    return {"whole": _np_flat(got),
+            "local_shapes": {k: tuple(v.to_local().shape)
+                             for k, v in leaves_with_paths(got)}}
