@@ -86,8 +86,10 @@ tuned arch); any failure propagates and the script exits non-zero:
    tokens; flash at the four attention shapes above, rwkv6-7b's scan):
    the kernel, its plain version and the library call where one exists,
    through a replayed CUDA graph; bytes, operations and the bound; flash
-   also in fp32 (its ``csrc/flash_attention.cu`` route, which lm_main's
-   fp32 control runs), against SDPA in fp32 at 1e-4;
+   also in fp32 (``time_flash_fp32``: its ``csrc/flash_attention.cu``
+   route, split TF32 on the tensor cores, which lm_main's fp32 control
+   runs), against its plain version at 2e-5 and SDPA in fp32 at 1e-4,
+   with the device kernels SDPA runs, by name;
 11. lm_main  — per arch (gemma3-4b, rwkv6-7b, deepseek-moe-16b,
    zamba2-2.7b) at full published width in bf16 with random weights
    from seed 0: ``LMSession(backend="cuda-lm")`` with the kernel policy
@@ -104,7 +106,9 @@ tuned arch); any failure propagates and the script exits non-zero:
    fp32 (there the policies agree within ``LM_FP32_REL_TOL``; in bf16
    the kernel policy is no further from fp32 than ``LM_BF16_FACTOR``
    times the plain one), deepseek-moe-16b's on its first
-   ``LM_CONTROL_LAYERS`` layers (those readings keyed ``control_``);
+   ``LM_CONTROL_LAYERS`` layers (those readings keyed ``control_``),
+   each fp32 prefill's launches counted from 0 (the kernel policy's: one
+   fp32 kernel a layer of the control);
    the bf16 hidden states' distance
    from the fp32 model's after every layer; then the arch's
    ``.smoke()`` config in fp32, where both policies give the same
@@ -185,16 +189,20 @@ tuned arch); any failure propagates and the script exits non-zero:
    production 16 x 16 mesh, run after every timed phase in a process of
    its own with no card (FLOPs, rank 0's argument bytes, collectives);
 21. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-13
-   (LM: the kernel policy's run in ``lm_main``, the server's in
-   ``lm_serve``, the tunings of ``lm_tune``), 15 (the CNN example), 17
-   (the trained ball net served) and 20 (the meshed sessions' runs),
-   each counted from 0 and read as it ends, max error, and the kernel's,
-   plain version's, bound's and library's ms per robot forward at batch
-   256 (maxpool2d's from the cold readings) or per LM prefill of the
-   first arch that runs it, and per prefill of each arch that runs it
-   (``per_arch``); for flash also its fp32 route (``fp32_route``:
-   ``csrc/flash_attention.cu`` at the same shapes, beside the plain
-   version and SDPA in fp32, timed in phase 10);
+   (LM: the kernel policy's run in ``lm_main`` and its fp32 control's
+   prefill, the server's in ``lm_serve``, the tunings of ``lm_tune``),
+   15 (the CNN example), 17 (the trained ball net served) and 20 (the
+   meshed sessions' runs), each counted from 0 and read as it ends, max
+   error, and the kernel's, plain version's, bound's and library's ms
+   per robot forward at batch 256 (maxpool2d's from the cold readings)
+   or per LM prefill of the first arch that runs it, and per prefill of
+   each arch that runs it (``per_arch``); flash's launches count both
+   routes; for flash also its fp32 route (``fp32_route``:
+   ``csrc/flash_attention.cu``, split TF32 on the tensor cores, at the
+   same shapes, beside the plain version and SDPA in fp32, timed in
+   phase 10; its launches, counted apart, and its bound at 3 TF32
+   products a product, 495 TFLOP/s, with fp32 FMA's 67 TFLOP/s bound
+   beside it);
 22. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -216,10 +224,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor
-# cores, dense bf16 tensor-core rate
+# cores, dense TF32 and bf16 tensor-core rates
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
+# the fp32 flash kernel's split TF32 issues three TF32 products for each
+# product of the function
+SPLIT_TF32_PRODUCTS = 3
 BATCH = 256
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
@@ -444,6 +456,82 @@ def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def flash_main_layers(archs) -> dict:
+    """The LM main path's attention layers: label -> (arch, (q heads, kv
+    heads, head dim), window, launches a prefill)."""
+    def kinds(cfg):
+        return cfg.prologue + cfg.pattern * cfg.n_groups
+
+    def heads(cfg):
+        return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    gemma = archs["gemma3-4b"]
+    layers = {"gemma3-4b global": ("gemma3-4b", heads(gemma), None,
+                                   kinds(gemma).count("A")),
+              "gemma3-4b local": ("gemma3-4b", heads(gemma), gemma.window,
+                                  kinds(gemma).count("L"))}
+    for arch in ("deepseek-moe-16b", "zamba2-2.7b"):
+        cfg = archs[arch]
+        label = arch + (" shared" if "S" in cfg.pattern else "")
+        layers[label] = (arch, heads(cfg), None, sum(
+            k in "ALS" for k in kinds(cfg)))
+    return layers
+
+
+def time_flash_fp32(torch, q, k, v, window) -> dict:
+    """Flash's fp32 route (``FLASH_FP32_SOURCE``) at one causal layer, q, k
+    and v fp32 (B,H,T,D) views: held at 2e-5 against its plain version and
+    at 1e-4 against SDPA in fp32, then ``graph_ms`` of the kernel, the
+    plain version and SDPA; the bound of its split TF32 and, beside it,
+    that of fp32 FMA outside the tensor cores; SDPA's device kernels by
+    name, from the profiler."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels.ref import attention_ref
+    b, hq, t, d = q.shape
+    qi = torch.arange(t, device=q.device)[:, None]
+    kj = torch.arange(t, device=q.device)[None, :]
+    mask = (kj <= qi) & ((qi - kj) < (window or t))
+
+    def kernel():
+        return flash_mod.flash_attention_cuda(q, k, v, window=window)
+
+    def plain():
+        return attention_ref(q, k, v, window=window)
+
+    def library():
+        if window is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    what = f"fp32 flash_attention {tuple(q.shape)} window {window}"
+    o = kernel()
+    err = compare(o, plain(), 2e-5, 2e-5, what)
+    compare(library(), o, 1e-4, 1e-4, "library " + what)
+    ops = 4 * b * hq * d * int(mask.sum())
+    row = dict(q=list(q.shape), k=list(k.shape), dtype="float32",
+               window=window, max_abs_err=err, ms=graph_ms(torch, kernel),
+               plain_ms=graph_ms(torch, plain, reps=3),
+               library_ms=graph_ms(torch, library),
+               nbytes=nbytes(q, k, v, o), ops=ops,
+               ops_rate=f"split TF32 on the tensor cores: "
+                        f"{SPLIT_TF32_PRODUCTS} TF32 products a product at "
+                        f"495 TFLOP/s")
+    (row["bound_ms"], row["bound_by"], row["bytes_ms"],
+     row["ops_ms"]) = bound(row["nbytes"], SPLIT_TF32_PRODUCTS * ops,
+                            TF32_OPS_PER_S)
+    row["fp32_fma_bound_ms"] = bound(row["nbytes"], ops, FP32_OPS_PER_S)[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        library()
+        torch.cuda.synchronize()
+    row["library_kernels"] = sorted({
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA})
+    return row
 
 
 def conv_instantiations(log):
@@ -992,15 +1080,21 @@ def main() -> int:
         a = (rng.normal(size=shape) * scale).astype(np.float32)
         return torch.from_numpy(a).to(dev).to(dtype)
 
-    counted = {"conv2d": conv_mod, "maxpool2d": pool_mod,
-               "flash_attention": flash_mod, "linear_scan": scan_mod}
+    # counter -> (module, attribute); flash_attention counts both routes,
+    # flash_attention_f32 its fp32 route (csrc/flash_attention.cu) apart
+    counted = {"conv2d": (conv_mod, "launches"),
+               "maxpool2d": (pool_mod, "launches"),
+               "flash_attention": (flash_mod, "launches"),
+               "flash_attention_f32": (flash_mod, "launches_f32"),
+               "linear_scan": (scan_mod, "launches")}
 
     def counts():
-        return {name: mod.launches for name, mod in counted.items()}
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in counted.items()}
 
     def reset_counts():
-        for mod in counted.values():
-            mod.launches = 0
+        for mod, attr in counted.values():
+            setattr(mod, attr, 0)
 
     # -- 1. device -------------------------------------------------------
     smi = subprocess.run(
@@ -1435,7 +1529,7 @@ def main() -> int:
                                           init_params, stack_blocks)
     from repro_torch.serve import LMTokenServer
 
-    gemma, rwkv = ARCHS["gemma3-4b"], ARCHS["rwkv6-7b"]
+    rwkv = ARCHS["rwkv6-7b"]
     hubert = ARCHS["hubert-xlarge"]  # one full-width layer at head dim 80
     rwkv_h, rwkv_n = rwkv.d_model // rwkv.ssm_head_dim, rwkv.ssm_head_dim
 
@@ -1445,17 +1539,7 @@ def main() -> int:
     def heads(cfg):
         return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    flash_main = {  # main-path attention layer -> (arch, heads, window,
-        # launches per prefill)
-        "gemma3-4b global": ("gemma3-4b", heads(gemma), None,
-                             kinds(gemma).count("A")),
-        "gemma3-4b local": ("gemma3-4b", heads(gemma), gemma.window,
-                            kinds(gemma).count("L"))}
-    for arch in ("deepseek-moe-16b", "zamba2-2.7b"):
-        cfg = ARCHS[arch]
-        label = arch + (" shared" if "S" in cfg.pattern else "")
-        flash_main[label] = (arch, heads(cfg), None, sum(
-            k in "ALS" for k in kinds(cfg)))
+    flash_main = flash_main_layers(ARCHS)
     f32, bf16 = torch.float32, torch.bfloat16
 
     def attn_inputs(b, hq, hkv, t, d, dtype, model_layout=False):
@@ -1638,32 +1722,11 @@ def main() -> int:
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True)
         compare(library(), o, 3e-2, 3e-2, f"library attention {layer}")
-        # the fp32 route (csrc/flash_attention.cu, lm_main's fp32 control)
-        # at the same shape, beside its plain version and SDPA in fp32
-        q32, k32, v32 = (a.float() for a in (q, k, v))
-        o32 = flash_mod.flash_attention_cuda(q32, k32, v32, window=window)
-        if window is None:
-            def library32():
-                return F.scaled_dot_product_attention(
-                    q32, k32, v32, is_causal=True, enable_gqa=True)
-        else:
-            def library32():
-                return F.scaled_dot_product_attention(
-                    q32, k32, v32, attn_mask=mask, enable_gqa=True)
-        compare(library32(), o32, 1e-4, 1e-4, f"library fp32 attention "
-                                                 f"{layer}")
+        # the fp32 route (lm_main's fp32 controls) at the same shape
         lm_rows_fp32.append(dict(
-            arch=arch, layer=layer, window=window, per_prefill=n_layers,
-            q=list(q32.shape), k=list(k32.shape), dtype="float32",
-            ms=graph_ms(torch, lambda: flash_mod.flash_attention_cuda(
-                q32, k32, v32, window=window)),
-            plain_ms=graph_ms(torch, lambda: attention_ref(
-                q32, k32, v32, window=window), reps=3),
-            library_ms=graph_ms(torch, library32),
-            nbytes=nbytes(q32, k32, v32, o32),
-            ops=4 * LM_BATCH * hq * d * int(mask.sum()),
-            ops_rate="fp32 outside the tensor cores, 67 TFLOP/s"))
-        del q32, k32, v32, o32
+            arch=arch, layer=layer, per_prefill=n_layers,
+            **time_flash_fp32(torch, *(a.float() for a in (q, k, v)),
+                              window)))
         lm_rows["flash_attention"].append(dict(
             arch=arch, layer=layer, window=window, per_prefill=n_layers,
             q=list(q.shape), k=list(k.shape), dtype="bfloat16",
@@ -1694,8 +1757,6 @@ def main() -> int:
                                   rate or FP32_OPS_PER_S)
             emit("lm_time", kernel=kernel, **r)
     for r in lm_rows_fp32:
-        (r["bound_ms"], r["bound_by"], r["bytes_ms"],
-         r["ops_ms"]) = bound(r["nbytes"], r["ops"], FP32_OPS_PER_S)
         emit("lm_time", kernel="flash_attention", route="fp32",
              source=FLASH_FP32_SOURCE, **r)
 
@@ -1802,10 +1863,11 @@ def main() -> int:
                     "deepseek-moe-16b": "flash_attention",
                     "zamba2-2.7b": "flash_attention"}
 
-    def per_prefill(arch):
+    def per_prefill(arch, cfg=None):
         """Launches of the arch's kernel per kernel-policy prefill: one
-        per attention block (each use of a shared block) or RWKV block."""
-        layers = kinds(ARCHS[arch])
+        per attention block (each use of a shared block) or RWKV block
+        of ``cfg`` (by default the arch's)."""
+        layers = kinds(cfg or ARCHS[arch])
         if lm_kernel_of[arch] == "linear_scan":
             return layers.count("R")
         return sum(k in "ALS" for k in layers)
@@ -1946,10 +2008,26 @@ def main() -> int:
                 for name, policy in policies.items()}
         cfg32 = dataclasses.replace(ccfg, dtype="float32")
         params32 = tree_float(cparams)
-        l32 = {name: CudaLMBackend(
-            cfg32, params=params32, max_context=LM_CONTEXT,
-            decode_batch=LM_BATCH, policy=policy).prefill(prompts)[0]
-            for name, policy in policies.items()}
+        # each fp32 prefill counted from 0: the kernel policy launches the
+        # fp32 kernel once a layer of the control, the plain policy never
+        l32, launches32 = {}, {}
+        for name, policy in policies.items():
+            backend32 = CudaLMBackend(
+                cfg32, params=params32, max_context=LM_CONTEXT,
+                decode_batch=LM_BATCH, policy=policy)
+            reset_counts()
+            l32[name] = backend32.prefill(prompts)[0]
+            launches32[name] = counts()
+            del backend32
+        n32 = per_prefill(arch, ccfg)
+        want32 = {k: n32 if k == kernel or (
+            kernel == "flash_attention" and k == "flash_attention_f32")
+            else 0 for k in counted}
+        if launches32 != {"kernels": want32,
+                          "plain": dict.fromkeys(counted, 0)}:
+            raise AssertionError(f"{arch}: fp32 control launches "
+                                 f"{launches32}, want {want32} and none")
+        launches["lm_main_fp32 " + arch] = launches32["kernels"]
         drift = layer_drift(ccfg, cparams, params32, prompts)
         del params32
         gates = {"fp32_kernels_vs_plain": rel_l2(l32["kernels"],
@@ -2014,7 +2092,9 @@ def main() -> int:
              smoke=dict(dtype="float32", tokens_equal=True,
                         max_abs_err=smoke_err),
              launches=run_launches["kernels"],
-             launches_plain=run_launches["plain"])
+             launches_plain=run_launches["plain"],
+             fp32_control=dict(layers=ccfg.n_layers,
+                               launches=launches32["kernels"]))
         check_lm_gates(gates, f"{arch} prefill logits ({ccfg.n_layers} "
                               f"layers)")
 
@@ -2309,11 +2389,21 @@ def main() -> int:
             entry.update(per=f"{archs[0]} prefill", batch=LM_BATCH,
                          tokens=LM_PROMPT, per_arch=per_arch)
             if kernel == "flash_attention":
+                per32 = {}
+                for a in archs:
+                    rs32 = [r for r in lm_rows_fp32 if r["arch"] == a]
+                    per32[a] = dict(
+                        summary(rs32), launches_per_prefill=per_prefill(a),
+                        fp32_fma_bound_ms=sum(r["per_prefill"]
+                                              * r["fp32_fma_bound_ms"]
+                                              for r in rs32))
                 entry["fp32_route"] = dict(
                     source=FLASH_FP32_SOURCE, dtype="float32",
-                    per_arch={a: summary([r for r in lm_rows_fp32
-                                          if r["arch"] == a])
-                              for a in archs})
+                    launches=sum(got["flash_attention_f32"]
+                                 for got in launches.values()),
+                    max_abs_err=lm_err[kernel]["float32"],
+                    bound="split TF32: 3 x operations at 495 TFLOP/s",
+                    per_arch=per32)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,7 @@ SIGNATURES = {
     + [_F, _P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3
     + [_F, _P],
+    "flash_attention_f32_tiles": [_I, _P, _P],  # d, &block_q, &key_tile
     "linear_scan_f32": [_P] * 7 + [_I] * 5 + [_P],
     "linear_scan_bf16": [_P] * 7 + [_I] * 5 + [_P],
 }

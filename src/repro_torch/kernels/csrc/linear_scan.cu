@@ -367,15 +367,9 @@ int launch_scan(const void* decay, const void* k, const void* v,
                 const ScanShape& s, void* stream) {
   using L = Ring<T, R>;
   auto kern = linear_scan_kernel<T, R>;
-  // above 48 KB only after opting in; once, at the first (uncaptured)
-  // launch, so a launch inside a CUDA graph capture only enqueues
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
+  static bool opted_in[kMaxDevices] = {};
+  const cudaError_t err = opt_in_shared_memory(kern, L::kBytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // the 16-byte copies and stores: whole 16-byte chunks in every row and
   // column tile, and every pointer they touch aligned
   const int vec = L::kAligned && s.n * sizeof(T) % 16 == 0 &&

@@ -1,30 +1,36 @@
-"""Wrapper of the hand-written Hopper flash-attention kernels: bf16 on
-the tensor cores (``csrc/flash_attention_sm90.cu``), fp32 outside them
-(``csrc/flash_attention.cu``).
+"""Wrapper of the hand-written Hopper flash-attention kernels, both on
+the tensor cores: bf16 (``csrc/flash_attention_sm90.cu``) and fp32 as
+split TF32 (``csrc/flash_attention.cu``).
 
 Replaces the JAX package's Pallas TPU kernel ``_flash_kernel`` /
 ``flash_attention_pallas`` (``kernels/flash_attention.py``): prefill
 attention with causal and sliding-window masks and GQA, online softmax
 in fp32, a fully masked row giving 0, output in ``q``'s type.  Bound by
-operations on the card, at the bf16 tensor-core rate.  The bf16 kernel
-runs both products on the tensor cores (``wgmma``, tiles copied by TMA)
-and, unlike the TPU kernel, keeps p to about 16 bits (``bf16(p)`` plus
-``bf16(p - bf16(p))``, both multiplied with v) instead of rounding it
-once to bf16, so every output stays within one bf16 rounding of the fp32
-function of its inputs (one rounding of p breaks that on 24% of
-gemma3-4b-shaped outputs; see the note in the source).  The fp32 kernel
-stays off the tensor cores: TF32 keeps about 10 bits.  The TPU kernel's
-``block_q`` / ``block_k`` have no counterpart: the CUDA kernels' tiles
-are fixed and they mask the ragged edge, so any T and S work.
+operations on the card.  The bf16 kernel runs both products on the
+tensor cores (``wgmma``, tiles copied by TMA) and, unlike the TPU kernel,
+keeps p to about 16 bits (``bf16(p)`` plus ``bf16(p - bf16(p))``, both
+multiplied with v) instead of rounding it once to bf16, so every output
+stays within one bf16 rounding of the fp32 function of its inputs (one
+rounding of p breaks that on 24% of gemma3-4b-shaped outputs; see the
+note in the source).  The fp32 kernel runs both products as split TF32
+(``mma.sync``, tiles copied by ``cp.async``): each operand split into
+``hi = tf32(x)`` and ``lo = tf32(x - hi)``, three TF32 products with
+fp32 accumulators, about 2**-22 of each operand left where one TF32
+product (2**-11) would miss the fp32 tolerance of 2e-5
+(``tests/test_torch_flash_fp32_split.py`` emulates it).  The TPU
+kernel's ``block_q`` / ``block_k`` have no counterpart: the CUDA
+kernels' tiles are fixed and they mask the ragged edge, so any T and S
+work.
 
 q, k and v may be strided views (the model passes its (B,T,H,D)
 activations transposed, without a copy) as long as d is contiguous; the
-output has q's strides.  TMA copies 16-byte aligned rows, so for bf16
-every base pointer and every (b, h, t) stride must be a multiple of 16
-bytes; anything else raises ``ValueError``.
+output has q's strides.  Both kernels copy 16-byte chunks (TMA, or
+``cp.async`` for fp32), so every base pointer and every (b, h, t) stride
+must be a multiple of 16 bytes; anything else raises ``ValueError``.
 
-``launches`` counts the kernel launches of this process; it is a plain
-integer, read and reset by ``chip_smoke.py``.
+``launches`` counts the kernel launches of this process, both types;
+``launches_f32`` those of the fp32 kernel alone.  They are plain
+integers, read and reset by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)  # the archs' and the tests' dims
 
 launches = 0
+launches_f32 = 0
 _count_lock = threading.Lock()
 
 
@@ -58,15 +65,15 @@ def _check(t: torch.Tensor, name: str, dtype, device) -> None:
 
 
 def _check_aligned(t: torch.Tensor, name: str) -> None:
-    """The bf16 kernel's TMA copies: base pointer and every (b, h, t)
+    """The kernels' 16-byte copies: base pointer and every (b, h, t)
     stride (of a dim longer than 1) a multiple of 16 bytes."""
     if t.data_ptr() % 16 or any(
             n > 1 and st * t.element_size() % 16
             for n, st in zip(t.shape[:3], t.stride()[:3])):
         raise ValueError(
-            f"{name}: the bf16 kernel needs a 16-byte aligned base pointer "
-            f"and (b, h, t) strides of whole 16-byte chunks, got pointer "
-            f"{t.data_ptr():#x}, strides {t.stride()}")
+            f"{name}: the {t.dtype} kernel needs a 16-byte aligned base "
+            f"pointer and (b, h, t) strides of whole 16-byte chunks, got "
+            f"pointer {t.data_ptr():#x}, strides {t.stride()}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,7 +82,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,Hq,T,D), k/v (B,Hkv,S,D), fp32 or bf16 alike, on one CUDA
     device; Hq % Hkv == 0, D in :data:`HEAD_DIMS`.  Launches on the
     current stream."""
-    global launches
+    global launches, launches_f32
     check_no_grad("flash_attention", q, k, v)
     _check(q, "q", None, None)
     _check(k, "k", q.dtype, q.device)
@@ -92,10 +99,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)  # q's strides: (B,T,H,D) memory stays so
     if o.numel() == 0:
         return o
+    # o has q's strides or is contiguous: aligned with q
+    for a, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_aligned(a, name)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:  # o has q's strides or is contiguous: aligned with q
-        for a, name in ((q, "q"), (k, "k"), (v, "v")):
-            _check_aligned(a, name)
     scale = d ** -0.5 if scale is None else float(scale)
     lib = kernel_library()
     fn = lib.flash_attention_bf16 if bf16 else lib.flash_attention_f32
@@ -109,4 +116,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_launch(rc, "flash_attention")
     with _count_lock:
         launches += 1
+        launches_f32 += not bf16
     return o

@@ -370,6 +370,77 @@ def test_flash_attention_bf16_kernel_within_one_rounding(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("b,hq,hkv,t,s,causal,window,model_layout",
+                         BF16_FLASH_CASES)
+def test_flash_attention_fp32_kernel_at_every_head_dim(
+        cuda, b, hq, hkv, t, s, causal, window, model_layout, d):
+    """The fp32 split-TF32 kernel under the bf16 kernel's masks and
+    layouts (T != S, (B,T,H,D) views, window 0, T = S = 1537 with window
+    1024) at every head dim, against the plain version at 2e-5; counted
+    once in ``launches`` and once in ``launches_f32``."""
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in flash_inputs(b, hq, hkv, t, d, s))
+    if model_layout:  # (B,T,H,D) activations viewed as (B,H,T,D)
+        q, k, v = (a.transpose(1, 2).contiguous().transpose(1, 2)
+                   for a in (q, k, v))
+    before = (flash_mod.launches, flash_mod.launches_f32)
+    got = flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_mod.launches, flash_mod.launches_f32) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.stride() == q.stride()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fp32_kernel_refuses_unaligned_tensors(cuda):
+    """The fp32 kernel copies 16-byte chunks by cp.async: a t stride of 33
+    floats, and a base pointer 4 bytes off, raise; a bf16 launch does not
+    count in ``launches_f32``."""
+    strided = torch.zeros(1, 2, 8, 33, device=cuda)[..., :32]
+    shifted = torch.zeros(2 * 8 * 32 + 1, device=cuda)[1:].view(1, 2, 8, 32)
+    before = (flash_mod.launches, flash_mod.launches_f32)
+    for q in (strided, shifted):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_mod.flash_attention_cuda(q, q, q)
+    assert (flash_mod.launches, flash_mod.launches_f32) == before
+    qb = torch.zeros(1, 2, 8, 32, device=cuda, dtype=torch.bfloat16)
+    flash_mod.flash_attention_cuda(qb, qb, qb)
+    assert (flash_mod.launches, flash_mod.launches_f32) == (before[0] + 1,
+                                                            before[1])
+
+
+@pytest.mark.cuda
+def test_fp32_flash_and_scan_run_on_every_card(cuda):
+    """More than 48 KB of shared memory a block is an opt-in held per
+    device.  The fp32 flash kernel at D 256 (201,728 bytes) and the fp32
+    scan, launched on each card in turn, run and hold their plain
+    versions (2e-5, 1e-4) on every card, not only the first."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    attn = flash_inputs(1, 2, 1, 100, 256)
+    scan = scan_inputs(1, 40, 2, 64, 64)
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(dev):
+            q, k, v = (torch.from_numpy(a).to(dev) for a in attn)
+            np.testing.assert_allclose(
+                flash_mod.flash_attention_cuda(q, k, v).cpu().numpy(),
+                ref.attention_ref(q, k, v).cpu().numpy(), rtol=2e-5,
+                atol=2e-5)
+            seq = [torch.from_numpy(a).to(dev) for a in scan]
+            for got, want in zip(scan_mod.linear_scan_cuda(*seq),
+                                 ref.linear_scan_ref(*seq)):
+                np.testing.assert_allclose(got.cpu().numpy(),
+                                           want.cpu().numpy(), rtol=1e-4,
+                                           atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_reads_and_writes_strided_heads(cuda):
     """The model hands the kernel (B,T,H,D) activations transposed to
     (B,H,T,D) views: the same numbers as contiguous inputs, and the output
