@@ -173,9 +173,11 @@ tuned arch); any failure propagates and the script exits non-zero:
    one-rank NCCL group a ``mesh_shape=(1, 1)`` session starts (a
    ``FileStore`` in a temporary directory, no network); deepseek-moe-16b
    at full width in bf16 (during its lm phases, on the same weights,
-   wrapped as DTensors with no copy) through ``"cuda-lm"`` with its MoE
-   tensor-parallel and then expert-parallel, lm_main's traffic and
-   graphed decode (each captured step holds the MoE's NCCL collectives):
+   wrapped as DTensors with no copy) through ``"cuda-lm"`` with its dense
+   layers split over ``model`` (``dense``: every kind ``"heads"``; on one
+   rank each block is the whole) and its MoE tensor-parallel and then
+   expert-parallel, lm_main's traffic and graphed decode (each captured
+   step holds the split regions' and the MoE's NCCL collectives):
    the unmeshed session's tokens, the prefill logits bit-equal for TP
    and within ``LAUNCH_EP_REL_TOL`` relative L2 for EP, the flash
    launches of the prefill (28), prefill and steady decode tokens/s
@@ -2138,7 +2140,8 @@ def main() -> int:
     def launch_sessions(arch, params, prompts, unmeshed, unmeshed_rates):
         """The meshed session (``mesh_shape=(1, 1)``: a one-rank NCCL
         group) on the arch's weights, wrapped as DTensors without a
-        copy, with its MoE tensor-parallel, then expert-parallel: lm_main's
+        copy, its dense layers split over ``model`` (``dense``), with its
+        MoE tensor-parallel, then expert-parallel: lm_main's
         traffic (first calls, then one timed generate with the kernels'
         launches counted from 0), its tokens against the unmeshed
         session's, its prefill logits bit for bit (TP) or within
@@ -2163,6 +2166,10 @@ def main() -> int:
                           for a, b in zip(leaves(be.params), leaves(params)))
             if not wrapped:
                 raise AssertionError("the meshed session copied the weights")
+            dense = be.par.describe()["dense"]
+            if set(dense.values()) != {"heads"}:
+                raise AssertionError(f"{arch} {moe}: the dense layers do "
+                                     f"not run split: {dense}")
             sess.generate(prompts[:, :128], 3)  # first calls and captures
             reset_counts()
             be.par.coll.reset()
@@ -2193,7 +2200,7 @@ def main() -> int:
             steps = run["steps_s"]
             out[moe] = dict(
                 mesh=be.describe()["mesh"], backend=dist.get_backend(),
-                decode=be.describe()["decode"],
+                decode=be.describe()["decode"], dense=dense,
                 params_wrapped=wrapped, launches=got, collectives=coll,
                 tokens_equal=True, prefill_logits_bit_equal=bit_equal,
                 prefill_logits_rel_l2=rel,

@@ -328,9 +328,11 @@ class CudaLMBackend(LMBackend):
 
     With ``par`` (a :class:`~repro_torch.launch.sharding.MeshPar`) the
     weights are DTensors placed by its rule tables and every step runs
-    through it; on the card its collectives are NCCL's, issued on the
-    backend's stream, the communicators' first ones eagerly here, before
-    any capture, so a captured decode step holds its collectives."""
+    through it: each rank computes the split dense layers on its blocks
+    and holds its block of the caches.  On the card its collectives are
+    NCCL's, issued on the backend's stream, the communicators' first ones
+    eagerly here, before any capture, so a captured decode step holds its
+    collectives (an all-reduce over ``model`` a split block)."""
 
     def __init__(self, model_cfg, *, params=None, max_context: int = 128,
                  decode_batch: int = 1, policy=None, seed: int = 0,

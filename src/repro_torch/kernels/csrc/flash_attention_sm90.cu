@@ -555,15 +555,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
               const FlashShape& s, void* stream) {
   using Tl = Tiles<D>;
   auto kern = flash_attention_tc_kernel<D>;
-  // above 48 KB only after opting in; once, at the first (uncaptured)
-  // launch, so a launch inside a CUDA graph capture only enqueues
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
+  // above 48 KB only after opting in, once a device (common.cuh)
+  static bool opted_in[kMaxDevices] = {};
+  const cudaError_t err = opt_in_shared_memory(kern, Tl::kBytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (s.t + kBlockQ - 1) / kBlockQ;
   const long long bh = static_cast<long long>(s.b) * s.hq;
   if (bh > 0x7fffffffLL || n_qt > 65535)

@@ -17,8 +17,9 @@ that is replicated over an axis holds, on every rank, the whole
 derivative of the loss.  So ``all_reduce``'s backward is the identity
 (the sum's output is replicated), ``all_gather``'s a ``reduce_scatter``
 (each rank's use of the gathered tensor contributes a part),
-``all_to_all``'s the inverse exchange, ``reduce_scatter``'s an
-``all_gather``; :meth:`Collectives.replicated_in` is the identity
+``all_to_all``'s (and ``all_to_all_v``'s) the inverse exchange,
+``reduce_scatter``'s an ``all_gather``;
+:meth:`Collectives.replicated_in` is the identity
 forward and an ``all_reduce`` backward (a replicated tensor entering
 rank-specific work), and :meth:`Collectives.gather_out` gathers a split
 tensor back to a replicated one (backward: each rank's own chunk).
@@ -122,6 +123,13 @@ class Collectives:
         dist.all_to_all_single(out, chunks, group=self.group(axis))
         return torch.cat(out.unbind(0), concat_dim)
 
+    def _all_to_all_v(self, x, axis, send, recv):
+        self._count("all-to-all", x)
+        out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), list(recv), list(send),
+                               group=self.group(axis))
+        return out
+
     def _take(self, x, axis, dim):
         return x.chunk(self.size(axis), dim)[self.rank(axis)]
 
@@ -150,6 +158,15 @@ class Collectives:
         tiled=True)``)."""
         return _Op.apply(x, self, "all_to_all", (axis, split_dim, concat_dim))
 
+    def all_to_all_v(self, x: torch.Tensor, axis: str, send, recv
+                     ) -> torch.Tensor:
+        """Uneven exchange along dim 0: ``x``'s first ``send[0]`` rows
+        to rank 0, the next ``send[1]`` to rank 1, ...; ``recv[j]`` rows
+        received from rank j, in rank order (backward: the exchange
+        back, ``send`` and ``recv`` swapped)."""
+        return _Op.apply(x, self, "all_to_all_v", (axis, tuple(send),
+                                                   tuple(recv)))
+
     def replicated_in(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Identity; backward ``all_reduce`` over ``axis``."""
         if not (torch.is_grad_enabled() and x.requires_grad):
@@ -172,6 +189,7 @@ _FORWARD = {
     "all_gather": lambda c, x, a, d: c._all_gather(x, a, d),
     "reduce_scatter": lambda c, x, a, d: c._reduce_scatter(x, a, d),
     "all_to_all": lambda c, x, a, s, d: c._all_to_all(x, a, s, d),
+    "all_to_all_v": lambda c, x, a, s, r: c._all_to_all_v(x, a, s, r),
     "replicated_in": lambda c, x, a: x.view_as(x),
     "gather_out": lambda c, x, a, d: c._all_gather(x, a, d),
 }
@@ -180,6 +198,7 @@ _BACKWARD = {
     "all_gather": lambda c, g, a, d: c._reduce_scatter(g, a, d),
     "reduce_scatter": lambda c, g, a, d: c._all_gather(g, a, d),
     "all_to_all": lambda c, g, a, s, d: c._all_to_all(g, a, d, s),
+    "all_to_all_v": lambda c, g, a, s, r: c._all_to_all_v(g, a, r, s),
     "replicated_in": lambda c, g, a: c._all_reduce(g, a),
     "gather_out": lambda c, g, a, d: c._take(g, a, d).contiguous(),
 }

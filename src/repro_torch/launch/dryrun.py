@@ -8,6 +8,11 @@ Usage:
       --shape train_4k [--multipod] [--probe] [--out results/dryrun_torch]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multipod]
 
+``--mesh 1,4`` traces a debug mesh, ``--set n_layers=8`` cuts the depth,
+and ``--batch`` / ``--seq`` replace the shape's global batch and
+sequence length (a cell measured on the card, e.g. by
+``tools/tp_torch.py``).
+
 Importing this module sets no environment and starts no process group;
 :func:`run_cell` starts the ``fake`` backend's group of ``prod(mesh)``
 ranks (collectives return at once and move nothing) and runs the step
@@ -25,9 +30,17 @@ The reference's ``compile_s``, ``bytes_accessed``, ``hlo_bytes``,
 ``memory.temp_bytes``, ``memory.generated_code_bytes`` and
 ``utilization_ops`` come from XLA's compiled module and have no meaning
 here: they are left out.  The parameters' FSDP gathers count as
-all-gathers on axes of more than one rank; the port's dense layers are
-whole over ``model`` (see :mod:`repro_torch.launch.sharding`), so its
-numbers are the port's, not the reference's.
+all-gathers on axes of more than one rank.  The dense layers run split
+over ``model`` as the port runs them (see
+:mod:`repro_torch.launch.sharding`): rank 0's FLOPs are its blocks',
+its argument bytes count its blocks of the weights and caches, and the
+collectives are the split regions' (an all-reduce a row-parallel
+product, the vocabulary's all-gather, Mamba2's all-to-all).  What still
+differs from the reference's count: attention whose heads do not split
+runs whole where the reference splits its head dim, the activations are
+whole over ``model`` between the regions where the reference splits
+their sequence, and the loss reads logits gathered whole where the
+reference's cross entropy reads them split over the vocabulary.
 """
 from __future__ import annotations
 
@@ -82,9 +95,13 @@ def _parse_overrides(pairs):
 
 
 def _local_bytes(tree) -> int:
+    import torch
+
     from .sharding import is_dtensor
     total = 0
     for t in leaves(tree):
+        if not isinstance(t, torch.Tensor):
+            continue  # a prefill's next position
         t = t.to_local() if is_dtensor(t) else t
         total += t.numel() * t.element_size()
     return total
@@ -115,7 +132,7 @@ def _call_args(kind, args):
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              mesh_shape=None, probe: bool = False, mesh_axes=None,
-             overrides=None) -> dict:
+             overrides=None, batch=None, seq=None) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from .mesh import fake_process_group, make_mesh, production_shape
@@ -126,12 +143,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     sh = SHAPES[shape_name]
-    kind, seq, gbatch = sh["kind"], sh["seq_len"], sh["global_batch"]
+    kind = sh["kind"]
+    seq = sh["seq_len"] if seq is None else seq
+    gbatch = sh["global_batch"] if batch is None else batch
     shape = tuple(mesh_shape or production_shape(multi_pod))
     fake_process_group(math.prod(shape))
     mesh = make_mesh(shape, mesh_axes, device_type="cpu")
     result = {"arch": arch, "shape": shape_name, "kind": kind,
-              "mesh": list(shape), "axes": list(mesh.mesh_dim_names),
+              "batch": gbatch, "seq": seq, "mesh": list(shape),
+              "axes": list(mesh.mesh_dim_names),
               "multi_pod": multi_pod, "probe": probe, "ok": False}
     t0 = time.time()
     try:
@@ -185,6 +205,10 @@ def main():
                     help="config override, e.g. --set head_dim=128")
     ap.add_argument("--tag", default=None,
                     help="output filename tag (default pod/multipod/probe)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch in place of the shape's")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length in place of the shape's")
     args = ap.parse_args()
 
     mesh_shape = tuple(int(x) for x in args.mesh.split(",")) if args.mesh \
@@ -204,7 +228,8 @@ def main():
             continue
         r = run_cell(arch, shape, multi_pod=args.multipod,
                      mesh_shape=mesh_shape, probe=args.probe,
-                     overrides=_parse_overrides(args.overrides))
+                     overrides=_parse_overrides(args.overrides),
+                     batch=args.batch, seq=args.seq)
         with open(path, "w") as f:
             json.dump(r, f, indent=1)
         status = "OK" if r["ok"] else f"FAIL {r.get('error', '')[:120]}"

@@ -16,27 +16,76 @@ and :func:`~repro_torch.launch.mesh.axis_size`, so they take a
 arguments here: ``NNCG_MOE`` is ``moe="tp" | "ep"`` and
 ``NNCG_ULYSSES`` is ``ulysses``, each defaulting to the reference's
 behaviour with the variable unset.  ``NNCG_ATTN_RULE`` has no
-counterpart: it picks the layout of the reference's GSPMD constraints
-on attention, and the port has no such constraints.
+counterpart: the port's attention split (below) takes the reference's
+second rule (``"qshard_kvrep"``) wherever it applies, and never its
+third.
 
 :class:`MeshPar` runs the model on a mesh in PyTorch's idiom, not
 GSPMD's.  Parameters are stored as DTensors placed by
-:func:`param_specs`; a step gathers them whole (over the axes of more
-than one rank; on a dim of one rank the local shard is the whole, as in
-DTensor's own redistribution) and the model sees plain tensors.  The
-exception are the expert weights whose ``model`` split is the one the
-MoE region works on: they are gathered over the data axes only and
-enter the region as this rank's blocks.  The train step sums the
-gradients over the data axes straight into each rank's blocks
-(reduce-scatter over an axis a leaf is split on, all-reduce over one it
-is not) and all-reduces only the squared norms.
+:func:`param_specs`.  A step gathers each leaf over the data axes (the
+FSDP gathers; on an axis of one rank the local shard is the whole, as in
+DTensor's own redistribution), and over ``model`` only where the layer
+that reads it does not run split: the model sees plain tensors, this
+rank's blocks over ``model`` wherever it computes on them
+(:meth:`MeshPar.local_params`).  The train step sums the gradients over
+the data axes straight into each rank's blocks (reduce-scatter over an
+axis a leaf is split on, all-reduce over one it is not) and all-reduces
+only the squared norms.
+
+The dense layers are Megatron-style tensor parallel over ``model``
+(:func:`dense_splits`, reported by ``describe()["dense"]``): each layer
+reads its local head counts from its blocks' shapes, takes its
+replicated input through :meth:`MeshPar.region_in` (the identity; its
+backward all-reduces over ``model``), runs column-parallel products on
+this rank's heads or hidden units and leaves through a row-parallel
+product and :meth:`MeshPar.region_out` (an all-reduce; backward the
+identity).  Per layer kind:
+
+* attention, in the reference's priority (its GSPMD constraints,
+  ``constraint("heads" | "kv_heads")``): kv heads divide ``model`` ->
+  q and kv heads split, and so are the decode caches (``"heads"``);
+  else q heads divide and each rank's q heads fall in one kv group ->
+  q heads split, ``wk`` / ``wv`` read whole and each rank projects only
+  its group's k and v, or, with a cache, which stays whole, all of them
+  (``"q_heads_kv_whole"``); else whole.  The reference's third rule
+  splits the head dim; that needs the scores summed over ``model``
+  before the softmax, which a fused flash kernel cannot take, so the
+  port runs such attention whole;
+* the dense gated MLP: ``wg`` / ``wu`` column-parallel, ``wd``
+  row-parallel;
+* Mamba2: ``w_in`` column-parallel (its stored chunk of the ``xi | z``
+  columns re-cut into this rank's chunk of each half by one uneven
+  all-to-all, :meth:`MeshPar.halves`), the conv on its ``d_inner``
+  channels, the partial ``B`` / ``C`` / ``dt`` products all-reduced as
+  one tensor, the scan on its heads, ``w_out`` row-parallel; the conv
+  and SSM caches split;
+* RWKV6: ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` column-parallel by heads,
+  the decay's low-rank pair whole and its log cut to the local heads,
+  the scan on them, ``w_o`` row-parallel; in the channel mix ``w_ck``
+  column-parallel, ``w_cv`` row-parallel and reduce-scattered to this
+  rank's channels, which its block of ``w_cr`` gates before they are
+  gathered whole; the wkv cache split, the last tokens whole;
+* the vocabulary: each rank looks up the tokens in its embedding rows
+  and the rows are summed over ``model``; the head (or the tied
+  embedding) gives this rank's vocabulary's logits, gathered whole
+  before the loss and the session read them.
+
+A layer kind whose heads (or hidden units, or vocabulary) do not divide
+``model`` runs whole, its leaves gathered, as do the attention leaves
+where Ulysses runs.  Replicated leaves read inside a split region (the
+per-head vectors, ``ln_x``) are cut there through :meth:`MeshPar.narrow`,
+whose backward sums the ranks' disjoint parts, so their gradients come
+out whole and equal on every ``model`` rank.  What the reference does
+that the port does not: sequence parallelism of the activations between
+the regions (its ``"activations"`` rule), a vocab-parallel cross
+entropy, and the head-dim attention rule.
+
 Activations are plain local tensors: the batch is split over the data
-axes and replicated over ``model``, except in the three regions the
-reference writes as explicit ``shard_map``s, which split their work over
-``model`` with explicit collectives: the tensor-parallel MoE
+axes and replicated over ``model`` between the regions.  Three regions
+the reference writes as explicit ``shard_map``s also split their work
+over ``model`` with explicit collectives: the tensor-parallel MoE
 (:meth:`MeshPar.moe`), the expert-parallel MoE (``moe="ep"``) and
-Ulysses attention (``ulysses=True``).  The dense layers stay replicated
-over ``model`` (the reference's GSPMD splits them; that is not ported).
+Ulysses attention (``ulysses=True``).
 """
 from __future__ import annotations
 
@@ -246,8 +295,8 @@ def cache_specs(mesh, cfg: ModelConfig, cache_shape_tree):
     else head_dim.  SSM/RWKV states shard their head dim.  Prologue
     caches have one fewer leading dim than group caches: the rules are
     anchored at the tail.  These are the reference's rules; the port's
-    caches follow its activations, split over the data axes and whole
-    over ``model`` (``launch/specs.py: cache_layout``)."""
+    caches take them where its compute splits the same dim, and are
+    whole over ``model`` elsewhere (``launch/specs.py: cache_layout``)."""
     dp = dp_axes(mesh)
     model_n = axis_size(mesh, "model")
     kv_on_heads = cfg.n_kv_heads and cfg.n_kv_heads % model_n == 0
@@ -299,6 +348,49 @@ def _ep_specs(p_tree):
                               for path, t in leaves_with_paths(p_tree)])
 
 
+# ---------------------------------------------------- the dense split -----
+
+# the leaves a split layer kind reads as this rank's blocks over 'model'
+_SPLIT_LEAVES = {
+    "attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+    "mlp": ("wg", "wu", "wd"),
+    "mamba": ("w_in", "conv_w", "conv_b", "w_B", "w_C", "w_dt", "w_out"),
+    "rwkv": ("w_r", "w_k", "w_v", "w_g", "w_o", "w_ck", "w_cv", "w_cr"),
+    "vocab": ("embed", "head"),
+}
+_Q_LEAVES = ("wq", "bq", "wo")  # the attention's under "q_heads_kv_whole"
+
+
+def dense_splits(mesh, cfg: ModelConfig) -> Dict[str, str]:
+    """How each dense layer kind of ``cfg`` runs over ``model`` (see the
+    module docstring): ``"heads"``, ``"q_heads_kv_whole"`` (attention)
+    or ``"whole"``, for the kinds the config has (``"attn"``, ``"mlp"``:
+    the dense MLP, ``"mamba"``, ``"rwkv"``, ``"vocab"``)."""
+    n = axis_size(mesh, "model")
+    kinds = set(cfg.prologue + cfg.pattern)
+
+    def heads(ok):
+        return "heads" if ok else "whole"
+    out = {}
+    if kinds & set("ALS"):
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        if hkv % n == 0:
+            out["attn"] = "heads"
+        elif h % n == 0 and (h // hkv) % (h // n) == 0:
+            out["attn"] = "q_heads_kv_whole"
+        else:
+            out["attn"] = "whole"
+        if "S" in kinds or not cfg.n_experts:
+            out["mlp"] = heads(cfg.d_ff % n == 0)
+    if "M" in kinds:
+        out["mamba"] = heads((2 * cfg.d_model // cfg.ssm_head_dim) % n == 0)
+    if "R" in kinds:
+        out["rwkv"] = heads((cfg.d_model // cfg.ssm_head_dim) % n == 0
+                            and cfg.d_ff % n == 0)
+    out["vocab"] = heads(cfg.vocab_size % n == 0)
+    return out
+
+
 class MeshPar(Par):
     """The parallelism context bound to a ``DeviceMesh`` (see the module
     docstring).  ``moe`` picks the MoE region (``"tp"``: each rank keeps
@@ -317,15 +409,24 @@ class MeshPar(Par):
         self.moe_rule = moe
         self.ulysses = bool(ulysses)
         self.coll = Collectives(mesh)
+        self.dense = dense_splits(mesh, cfg)
 
     @property
     def model_n(self) -> int:
         return axis_size(self.mesh, "model")
 
+    @property
+    def model_rank(self) -> int:
+        return self.coll.rank("model")
+
     def describe(self) -> dict:
+        """The mesh, the MoE rule, Ulysses, and ``dense``: how each dense
+        layer kind runs over ``model`` (:func:`dense_splits`; where
+        Ulysses runs, the attention's leaves are read whole)."""
         return {"mesh": {a: axis_size(self.mesh, a)
                          for a in axis_names(self.mesh)},
-                "moe": self.moe_rule, "ulysses": self.ulysses}
+                "moe": self.moe_rule, "ulysses": self.ulysses,
+                "dense": dict(self.dense)}
 
     # ----------------------------------------------------- parameters --
     def param_specs(self, params):
@@ -396,22 +497,47 @@ class MeshPar(Par):
                 out = self.coll.all_gather(out, names[i], pl.dim)
         return out
 
-    def local_params(self, params, t: Optional[int] = None):
-        """The parameters as plain tensors for a sequence of ``t``: each
-        DTensor gathered whole, but for the expert weights (leaves of a
-        dict that holds a ``router``) whose ``model`` split is on the
-        dim the MoE region of :meth:`region_rule` splits: those keep
-        this rank's block over ``model``."""
+    def _kept(self, path: str, moe, attn_whole: bool) -> bool:
+        """Whether the dense leaf at ``path`` is read as this rank's
+        block over ``model`` (its layer runs split)."""
+        parent, _, name = path.rpartition("/")
+        kind = parent.rpartition("/")[2] if parent else "vocab"
+        split = self.dense.get(kind, "whole")
+        if parent in moe or split == "whole" or (kind == "attn"
+                                                 and attn_whole):
+            return False
+        if split == "q_heads_kv_whole":
+            return name in _Q_LEAVES
+        return name in _SPLIT_LEAVES[kind]
+
+    def local_params(self, params, t: Optional[int] = None,
+                     cached: bool = False):
+        """The parameters as plain tensors for a sequence of ``t``
+        (``cached``: a prefill or decode step): each DTensor gathered
+        whole, but for the leaves the model reads as this rank's blocks
+        over ``model``, gathered over the data axes only: the dense
+        leaves of every layer that runs split (:func:`dense_splits`;
+        the attention's whole where Ulysses runs, a step without caches
+        of a ``t`` it takes), and the expert weights (leaves of a dict
+        that holds a ``router``) whose ``model`` split is on the dim the
+        MoE region of :meth:`region_rule` splits.  Plain tensors are
+        taken as they are."""
         from torch.distributed.tensor import Shard
         flat = list(leaves_with_paths(params))
         moe = {path.rpartition("/")[0] for path, _ in flat
                if path.split("/")[-1] == "router"}
         dims = self._region_dims(self.region_rule(t)) if moe else {}
         model = axis_names(self.mesh).index("model")
+        attn_whole = (t is not None and not cached
+                      and self.ulysses_ok(self.cfg, t))
 
         def leaf(path, x):
+            if not is_dtensor(x):
+                return x
             parent, _, name = path.rpartition("/")
-            if is_dtensor(x) and parent in moe and name in dims:
+            if self._kept(path, moe, attn_whole):
+                return self.gather(x, keep=("model",))
+            if parent in moe and name in dims:
                 pl = x.placements[model]
                 if isinstance(pl, Shard) and pl.dim == x.ndim + dims[name][0]:
                     return self.gather(x, keep=("model",))
@@ -532,10 +658,53 @@ class MeshPar(Par):
     # ------------------------------------------------------------ hooks --
     def constraint(self, x, kind: str):
         """The identity.  In the reference a GSPMD sharding constraint
-        fixes where a tensor lives, never its values; the port's
-        activations have one layout (split over the data axes, whole over
+        fixes where a tensor lives, never its values; the port's split
+        regions cut their tensors themselves, and its activations between
+        them have one layout (split over the data axes, whole over
         ``model``), so there is nothing to fix."""
         return x
+
+    def dense_split(self, kind: str) -> str:
+        return self.dense.get(kind, "whole")
+
+    def cache_split(self, kind: str) -> int:
+        return self.model_n if self.dense_split(kind) == "heads" else 1
+
+    def region_in(self, x):
+        return self.coll.replicated_in(x, "model")
+
+    def region_out(self, x):
+        return self.coll.all_reduce(x, "model")
+
+    def scatter_out(self, x, dim: int):
+        return self.coll.reduce_scatter(x, "model", dim)
+
+    def gather_out(self, x, dim: int):
+        return self.coll.gather_out(x, "model", dim)
+
+    def narrow(self, x, dim: int, start: int, length: int):
+        if length == x.shape[dim]:
+            return x
+        return self.region_in(x).narrow(dim, start, length)
+
+    def halves(self, y):
+        """Of ``2n`` column pieces ``[a_0 .. a_{n-1} | b_0 .. b_{n-1}]``
+        rank r holds pieces 2r and 2r + 1 (its contiguous chunk) and
+        needs a_r and b_r: each piece goes to rank ``piece mod n`` in
+        one uneven all-to-all (over a ``model`` axis of one rank, ``y``
+        as it is)."""
+        n = self.model_n
+        if n == 1:
+            return y
+        r = self.model_rank
+        parts = y.unflatten(-1, (2, y.shape[-1] // 2)).movedim(-2, 0)
+        dest = [(2 * r + i) % n for i in (0, 1)]
+        src = [r // 2, (n + r) // 2]  # of a_r, then b_r
+        order = sorted((0, 1), key=dest.__getitem__)
+        got = self.coll.all_to_all_v(
+            parts[list(order)], "model", [dest.count(j) for j in range(n)],
+            [src.count(j) for j in range(n)])
+        return got.movedim(0, -2).flatten(-2)
 
     def moe(self, x, p, cfg: ModelConfig):
         """x: (b, T, D) this rank's tokens -> (b, T, D).  EP where the

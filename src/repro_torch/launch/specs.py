@@ -7,10 +7,10 @@ Where the reference builds ``ShapeDtypeStruct``s carrying their
 ``torch._subclasses.fake_tensor.FakeTensorMode``), placed by the rule
 tables: the
 parameters and AdamW moments by :func:`param_specs`, the batch by
-:func:`batch_specs`.  The decode caches follow the port's layout, not
-the reference's :func:`cache_specs`: split over the data axes on the
-batch dim, whole over ``model`` (the port's attention is not split over
-``model``).
+:func:`batch_specs`.  The decode caches follow the port's layout
+(:func:`cache_layout`): split over the data axes on the batch dim, and
+over ``model`` on the dims where the reference's :func:`cache_specs`
+splits them and the port's compute splits the same dim.
 """
 from __future__ import annotations
 
@@ -23,8 +23,8 @@ from ..models.config import ModelConfig
 from ..models.stack import dtype_of, init_cache, init_params
 from ..optim import AdamW
 from .mesh import axis_size, dp_axes
-from .sharding import (NamedSharding, batch_specs, place, spec_for, spec_of,
-                       to_named, to_placements)
+from .sharding import (NamedSharding, batch_specs, dense_splits, place,
+                       spec_for, spec_of, to_named, to_placements)
 
 
 def batch_shapes(cfg: ModelConfig, kind: str, batch: int, seq: int
@@ -51,15 +51,29 @@ def batch_shapes(cfg: ModelConfig, kind: str, batch: int, seq: int
     return b
 
 
-def cache_layout(mesh, cache_tree) -> Any:
-    """The port's cache specs: the batch dim (after the group dim of the
-    ``grp`` caches) over the data axes, the rest whole."""
+# cache leaf name -> (dense layer kind, its split dim after the batch dim)
+_CACHE_HEADS = {"k": ("attn", 2), "v": ("attn", 2), "ssm": ("mamba", 1),
+                "conv": ("mamba", 2), "wkv": ("rwkv", 1)}
+
+
+def cache_layout(mesh, cache_tree, cfg: ModelConfig) -> Any:
+    """The port's cache specs of ``cfg``'s whole caches ``cache_tree``:
+    the batch dim (after the group dim of the ``grp`` caches) over the
+    data axes, and where the layer runs split over ``model``
+    (:func:`~repro_torch.launch.sharding.dense_splits` says
+    ``"heads"``) the dim the reference's ``cache_specs`` puts on
+    ``model``: the kv heads of ``k`` / ``v``, Mamba2's ``ssm`` heads and
+    ``conv`` channels, RWKV6's ``wkv`` heads; the rest whole."""
     dp = dp_axes(mesh)
+    splits = dense_splits(mesh, cfg)
 
     def spec(path, t):
         lead = 1 if path.startswith("grp") else 0
         rule = [None] * t.ndim
         rule[lead] = dp
+        kind, dim = _CACHE_HEADS.get(path.rpartition("/")[2], (None, 0))
+        if kind is not None and splits.get(kind) == "heads":
+            rule[lead + dim] = "model"
         return spec_for(mesh, t.shape, rule)
     return unflatten(cache_tree, [spec(p, t)
                                   for p, t in leaves_with_paths(cache_tree)])
@@ -92,8 +106,8 @@ def input_specs(cfg: ModelConfig, mesh, kind: str, batch: int, seq: int,
     if kind == "decode":
         local_b = batch // axis_size(mesh, *dp_axes(mesh)) \
             if par.split(batch) else batch
-        caches = _empty(init_cache(cfg, local_b, seq, "meta"), device)
-        layout = cache_layout(mesh, init_cache(cfg, batch, seq, "meta"))
+        caches = _empty(init_cache(cfg, local_b, seq, "meta", par), device)
+        layout = cache_layout(mesh, init_cache(cfg, batch, seq, "meta"), cfg)
         caches = tree_map(lambda t, s: _wrap_local(t, mesh, s), caches,
                           layout)
         pos = torch.zeros((), dtype=torch.int64, device=device)
@@ -129,9 +143,8 @@ def output_shardings(cfg: ModelConfig, mesh, kind: str, args):
         b = some.shape[0] if some.shape[0] != 3 else some.shape[1]
         seq = (batch["tokens"] if "tokens" in batch else batch["embeds"]
                ).shape[1]
-        caches = to_named(mesh, cache_layout(
-            mesh, init_cache(cfg, b, seq, "meta")),
-            init_cache(cfg, b, seq, "meta"))
+        whole = init_cache(cfg, b, seq, "meta")
+        caches = to_named(mesh, cache_layout(mesh, whole, cfg), whole)
         return (rep, caches, rep)
     if kind == "decode":
         return (rep, shard_of(args[1]), rep)

@@ -39,35 +39,56 @@ from .stack import (DEFAULT_PAR, Par, apply_stack, dtype_of, init_cache,
 UNEMBED_CHUNK = 32768
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor):
+def embed_tokens(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor,
+                 par: Optional[Par] = None):
     """Token ids -> embedding rows scaled by sqrt(d_model) in the
     activation type (the scale itself rounded to that type, as in the
     reference); float inputs (audio frames, patch embeddings) pass
-    through in the model's type."""
+    through in the model's type.  With a ``par`` that splits the
+    vocabulary over ``model``, ``params["embed"]`` is this rank's rows:
+    it looks up the tokens that fall in them, zeroes the others, and the
+    ranks' rows are summed over ``model`` (one is nonzero: exact)."""
     if tokens_or_embeds.is_floating_point():
         return tokens_or_embeds.to(dtype_of(cfg))
-    x = params["embed"][tokens_or_embeds]
+    par = par or DEFAULT_PAR
+    table = params["embed"]
+    split = par.dense_split("vocab") != "whole"
+    if split:
+        rows = table.shape[0]
+        idx = tokens_or_embeds - par.model_rank * rows
+        mine = (idx >= 0) & (idx < rows)
+        x = table[idx.clamp(0, rows - 1)].masked_fill(~mine[..., None], 0)
+    else:
+        x = table[tokens_or_embeds]
     # the scale is filled on the device, not copied from the host, so a
     # decode step that embeds its tokens can be captured
-    return x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
-                          device=x.device)
+    x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                       device=x.device)
+    return par.region_out(x) if split else x
 
 
-def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, cfg: ModelConfig, x: torch.Tensor,
+            par: Optional[Par] = None) -> torch.Tensor:
     """(B, T, D) -> float32 logits (B, T, V): the products of the model's
     values summed in fp32 and kept in fp32, one vocabulary chunk at a
-    time, so a bf16 model's fp32 head copy stays small."""
+    time, so a bf16 model's fp32 head copy stays small.  With a ``par``
+    that splits the vocabulary over ``model`` the head (or the tied
+    embedding) is this rank's vocabulary, and its logits are gathered
+    whole over ``model``."""
+    par = par or DEFAULT_PAR
+    split = par.dense_split("vocab") != "whole"
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    xf = x.float()
+    xf = (par.region_in(x) if split else x).float()
     if head.dtype == torch.float32:
-        return xf @ head
-    v = head.shape[1]
-    out = torch.empty(x.shape[:-1] + (v,), dtype=torch.float32,
-                      device=x.device)
-    for c0 in range(0, v, UNEMBED_CHUNK):
-        out[..., c0:c0 + UNEMBED_CHUNK] = xf @ head[:, c0:c0 + UNEMBED_CHUNK
-                                                    ].float()
-    return out
+        out = xf @ head
+    else:
+        v = head.shape[1]
+        out = torch.empty(x.shape[:-1] + (v,), dtype=torch.float32,
+                          device=x.device)
+        for c0 in range(0, v, UNEMBED_CHUNK):
+            out[..., c0:c0 + UNEMBED_CHUNK] = xf @ head[
+                :, c0:c0 + UNEMBED_CHUNK].float()
+    return par.gather_out(out, -1) if split else out
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -80,12 +101,12 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     ``last_only`` (the same numbers: norm and unembedding are per
     position).  ``caches`` are updated in place.  With a mesh ``par``
     the parameters may be DTensors (gathered here, but for the blocks
-    the MoE region reads as they are) and ``batch`` is this rank's
-    part."""
+    that the split layers and the MoE region read as they are) and
+    ``batch`` is this rank's part."""
     par = par or DEFAULT_PAR
     inp = batch["embeds"] if "embeds" in batch else batch["tokens"]
-    params = par.local_params(params, inp.shape[1])
-    x = par.constraint(embed_tokens(params, cfg, inp), "activations")
+    params = par.local_params(params, inp.shape[1], caches is not None)
+    x = par.constraint(embed_tokens(params, cfg, inp, par), "activations")
     b, t = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -97,7 +118,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     if last_only:
         x = x[:, -1:]
     return par.constraint(unembed(params, cfg, rms_norm(
-        x, params["final_norm"], cfg.norm_eps)), "logits")
+        x, params["final_norm"], cfg.norm_eps), par), "logits")
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -207,7 +228,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
                       kernels: KernelPolicy = DEFAULT_KERNELS,
                       par: Optional[Par] = None):
     """prefill(params, batch) -> (last_logits (B,V), caches, next_pos).
-    With a mesh ``par`` the caches are this rank's part of the batch."""
+    With a mesh ``par`` the caches are this rank's block: its part of
+    the batch, and its heads where the layers run split."""
     par = par or DEFAULT_PAR
 
     def prefill(params, batch):
@@ -215,7 +237,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
         b, t = inp.shape[:2]
         local = par.local_batch(batch)
         b_loc = local["embeds" if "embeds" in local else "tokens"].shape[0]
-        caches = init_cache(cfg, b_loc, max_len, inp.device)
+        caches = init_cache(cfg, b_loc, max_len, inp.device, par)
         logits = forward(params, cfg, local, kernels, caches=caches, pos=0,
                          last_only=True, par=par)
         return par.gather_batch(logits[:, -1], b), caches, t

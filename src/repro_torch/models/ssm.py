@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .kernel_policy import fit_block
 from .layers import group_norm_heads, linear
+from .par import DEFAULT_PAR
 
 # ============================================================== Mamba2 ======
 
@@ -92,25 +93,48 @@ class MambaState(NamedTuple):
 
 
 def mamba2_mix(x, p, *, ssm_state: int, head_dim: int, chunk: int = 128,
-               state: Optional[MambaState] = None):
+               state: Optional[MambaState] = None, par=None):
     """Mamba2 mixer; x (B,T,D).  Returns ``(out, MambaState)``.  With a
     state and T == 1: the one-step recurrence (decode); otherwise
     :func:`ssd_chunked` from the state (zeros without one).  The casts
     sit where the reference's do: the conv's fp32 weights make ``xi``
     fp32, so the B, C and dt projections run in fp32, and ``y`` returns
-    to ``x.dtype`` only before the ``silu(z)`` gate."""
+    to ``x.dtype`` only before the ``silu(z)`` gate.
+
+    With a ``par`` (:class:`~repro_torch.models.par.Par`) that splits
+    the mixer over ``model``, ``p`` holds this rank's blocks: ``w_in``'s
+    contiguous chunk of its ``xi | z`` columns (re-cut into this rank's
+    chunk of each half by ``par.halves``), the conv's and ``w_out``'s
+    ``d_inner`` channels, and ``w_B`` / ``w_C`` / ``w_dt``'s rows, whose
+    partial products are summed over ``model`` as one tensor; the
+    per-head vectors are read as this rank's heads, and the state is its
+    heads' and channels'."""
+    par = par or DEFAULT_PAR
+    split = par.dense_split("mamba") != "whole"
     b, t, _ = x.shape
-    d_inner = p["w_in"].shape[1] // 2
+    d_inner = p["w_out"].shape[0]  # this rank's channels
     h = d_inner // head_dim
 
-    xi, z = linear(x, p["w_in"]).chunk(2, dim=-1)
+    if split:
+        x = par.region_in(x)
+    xz = linear(x, p["w_in"])
+    xi, z = (par.halves(xz) if split else xz).chunk(2, dim=-1)
     xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"],
                                  None if state is None else state.conv)
     xi = F.silu(xi)
     bm = linear(xi, p["w_B"])                               # (B,T,N)
     cm = linear(xi, p["w_C"])                               # (B,T,N)
-    dt = F.softplus(linear(xi, p["w_dt"]).float() + p["dt_bias"])
-    a = torch.exp(-dt * torch.exp(p["A_log"]))              # (B,T,H)
+    dt = linear(xi, p["w_dt"])                              # (B,T,H)
+    dt_bias, a_log, d_skip = p["dt_bias"], p["A_log"], p["D_skip"]
+    if split:
+        n = bm.shape[-1]
+        bcd = par.region_in(par.region_out(torch.cat([bm, cm, dt], -1)))
+        bm, cm, dt = bcd.split([n, n, dt.shape[-1]], -1)
+        dt = dt.narrow(-1, par.model_rank * h, h)
+        dt_bias, a_log, d_skip = (par.local(a, 0, h)
+                                  for a in (dt_bias, a_log, d_skip))
+    dt = F.softplus(dt.float() + dt_bias)
+    a = torch.exp(-dt * torch.exp(a_log))                   # (B,T,H)
     xh = xi.reshape(b, t, h, head_dim)
     u = xh.float() * dt[..., None]                          # discretized
 
@@ -121,9 +145,11 @@ def mamba2_mix(x, p, *, ssm_state: int, head_dim: int, chunk: int = 128,
     else:
         y, s_final = ssd_chunked(a, u, bm, cm,
                                  None if state is None else state.ssm, chunk)
-    y = y + xh.float() * p["D_skip"][None, None, :, None]
+    y = y + xh.float() * d_skip[None, None, :, None]
     y = y.reshape(b, t, d_inner).to(x.dtype) * F.silu(z)
-    return linear(y, p["w_out"]), MambaState(ssm=s_final, conv=new_conv)
+    out = linear(y, p["w_out"])
+    return (par.region_out(out) if split else out,
+            MambaState(ssm=s_final, conv=new_conv))
 
 
 def init_mamba2(init, d: int, *, ssm_state: int, head_dim: int,
@@ -181,7 +207,7 @@ def _steps(rf, kf, vf, decay, u, s):
 def rwkv6_time_mix(x, p, *, head_dim: int,
                    state: Optional[RWKVState] = None,
                    scan: str = "linear_scan", chunk: int = 64,
-                   constraint=None):
+                   constraint=None, par=None):
     """RWKV6 time mix with data-dependent per-channel decay.  Returns
     ``(out, final wkv state, last token)``.
 
@@ -197,10 +223,20 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
     steps, as the reference's scan of rematerialized chunks does (the
     same numbers, with O(T / chunk) saved states).  ``constraint`` is
     applied to r, k, v and the decay, where the reference shards the
-    heads (the port's ``Par.constraint``: the identity)."""
+    heads (the port's ``Par.constraint``: the identity).
+
+    With a ``par`` that splits RWKV6 over ``model``, ``p`` holds this
+    rank's heads' columns of ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` and
+    rows of ``w_o`` (row-parallel out); the decay's low-rank pair runs
+    whole and its log is cut to this rank's heads, as are ``u_bonus``
+    and ``ln_x``; ``state`` holds this rank's heads of the wkv state and
+    the whole last token."""
+    par = par or DEFAULT_PAR
+    split = par.dense_split("rwkv") != "whole"
     b, t, d = x.shape
     n = head_dim
-    h = d // n
+    dl = p["w_r"].shape[-1]  # this rank's channels
+    h = dl // n
     prev = (torch.zeros((b, d), dtype=x.dtype, device=x.device)
             if state is None else state.prev_tm.to(x.dtype))
     xx = _token_shift(x, prev)
@@ -209,6 +245,9 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
         return x + (xx - x) * mu.to(x.dtype)
 
     xr, xk, xv, xw, xg = (lerp(p[f"mu_{c}"]) for c in "rkvwg")
+    if split:
+        xr, xk, xv, xg = par.region_in(torch.stack([xr, xk, xv, xg])
+                                       ).unbind(0)
     r = linear(xr, p["w_r"]).reshape(b, t, h, n)
     k = linear(xk, p["w_k"]).reshape(b, t, h, n)
     v = linear(xv, p["w_v"]).reshape(b, t, h, n)
@@ -216,8 +255,11 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
     # data-dependent decay (low-rank): w = exp(-exp(w0 + tanh(xw A) B))
     dd = torch.tanh(linear(xw, p["w_dec_A"])) @ p["w_dec_B"].to(x.dtype)
     logw = p["w_dec0"].float() + dd.float()
+    ln_x, u = p["ln_x"], p["u_bonus"]
+    if split:
+        logw, ln_x, u = (par.local(a, -1, dl) for a in (logw, ln_x, u))
     decay = torch.exp(-torch.exp(logw)).reshape(b, t, h, n)   # (0,1)
-    u = p["u_bonus"].reshape(h, n).float()
+    u = u.reshape(h, n).float()
     if constraint is not None:
         r, k, v, decay = (constraint(a) for a in (r, k, v, decay))
     kf, vf, rf = k.float(), v.float(), r.float()
@@ -249,21 +291,35 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
         y = torch.cat(ys, dim=1)
     else:
         y, s_final = _steps(rf, kf, vf, decay, u, s0)
-    y = group_norm_heads(y, p["ln_x"].reshape(h, n)[None, None])
-    y = y.reshape(b, t, d).to(x.dtype) * g
-    return linear(y, p["w_o"]), s_final, x[:, -1]
+    y = group_norm_heads(y, ln_x.reshape(h, n)[None, None])
+    y = y.reshape(b, t, dl).to(x.dtype) * g
+    out = linear(y, p["w_o"])
+    return (par.region_out(out) if split else out), s_final, x[:, -1]
 
 
-def rwkv6_channel_mix(x, p, state_prev=None):
+def rwkv6_channel_mix(x, p, state_prev=None, par=None):
+    """RWKV6 channel mix.  With a ``par`` that splits RWKV6 over
+    ``model``: ``w_ck`` column-parallel, ``w_cv`` row-parallel with its
+    sum reduce-scattered to this rank's channels, which the local block
+    of ``w_cr`` (its output channels) gates; the gated channels are then
+    gathered whole."""
+    par = par or DEFAULT_PAR
+    split = par.dense_split("rwkv") != "whole"
     b, t, d = x.shape
     prev = (torch.zeros((b, d), dtype=x.dtype, device=x.device)
             if state_prev is None else state_prev.to(x.dtype))
     xx = _token_shift(x, prev)
     xk = x + (xx - x) * p["mu_ck"].to(x.dtype)
     xr = x + (xx - x) * p["mu_cr"].to(x.dtype)
+    if split:
+        xk, xr = par.region_in(torch.stack([xk, xr])).unbind(0)
     k = torch.square(F.relu(linear(xk, p["w_ck"])))
     kv = linear(k, p["w_cv"])
-    return torch.sigmoid(linear(xr, p["w_cr"])) * kv, x[:, -1]
+    if not split:
+        return torch.sigmoid(linear(xr, p["w_cr"])) * kv, x[:, -1]
+    kv = par.scatter_out(kv, -1)
+    return (par.gather_out(torch.sigmoid(linear(xr, p["w_cr"])) * kv, -1),
+            x[:, -1])
 
 
 def init_rwkv6(init, d: int, d_ff: int, *, dec_rank: int = 64,

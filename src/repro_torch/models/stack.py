@@ -23,8 +23,11 @@ allocates no second copy of a multi-GB cache.
 The ``par`` argument is the reference's parallelism context: ``None``
 (:data:`DEFAULT_PAR`) is the single-device no-op, and
 :class:`repro_torch.launch.sharding.MeshPar` overrides the hooks of
-:class:`Par` to run the MoE and Ulysses attention across a mesh.  The
-model code imports no mesh machinery.
+:class:`~repro_torch.models.par.Par` to run the MoE and Ulysses attention
+across a mesh and the dense layers tensor-parallel over ``model``: each
+block reads its local head counts from its weights' shapes, so the same
+code runs whole and on a rank's blocks.  The model code imports no mesh
+machinery.
 """
 from __future__ import annotations
 
@@ -33,7 +36,6 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..core.tree import tree_map
 from ..kernels import ops, ref
 from .attention_vjp import flash_mha, local_mha
 from .config import ModelConfig
@@ -48,7 +50,7 @@ from .layers import (
     rms_norm,
     rope,
 )
-from .moe import moe_mlp
+from .par import DEFAULT_PAR, Par  # noqa: F401  (re-exported)
 from .ssm import (MambaState, RWKVState, init_mamba2, init_rwkv6, mamba2_mix,
                   rwkv6_channel_mix, rwkv6_time_mix)
 
@@ -57,63 +59,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
-
-
-class Par:
-    """The parallelism context's hooks, as the single-device no-op."""
-
-    def constraint(self, x, kind: str):
-        """Where the reference pins a layout: the identity."""
-        return x
-
-    def moe(self, x, p, cfg: ModelConfig):
-        """The MoE MLP over the (B*T, D) tokens of x (B, T, D)."""
-        b, t, d = x.shape
-        return moe_mlp(x.reshape(b * t, d), p, top_k=cfg.top_k, act=cfg.act,
-                       capacity_factor=cfg.capacity_factor).reshape(b, t, d)
-
-    def ulysses_ok(self, cfg: ModelConfig, t: int) -> bool:
-        return False
-
-    def local_params(self, params, t: Optional[int] = None):
-        """The parameters as the model reads them, for a sequence of
-        ``t``: plain tensors."""
-        return params
-
-    def local_batch(self, batch):
-        """This rank's part of a global batch dict."""
-        return batch
-
-    def gather_batch(self, t, global_b: int):
-        """Per-rank outputs (batch dim first) of a batch of ``global_b``
-        gathered whole."""
-        return t
-
-    def data_sum(self, x):
-        """A per-rank partial sum summed over the data axes."""
-        return x
-
-    def reduce_grads(self, grads, params):
-        """The gradients of :meth:`local_params`' tensors as the update
-        takes them."""
-        return grads
-
-    def grad_norm(self, grads, params):
-        """The global norm of the whole gradient tree."""
-        from ..optim.adamw import global_norm
-        return global_norm(grads)
-
-    def optimizer_step(self, optimizer, grads, gnorm, opt_state, params):
-        """One ``optimizer`` update of ``params`` in place (``gnorm``:
-        the gradients' global norm); returns the new optimizer state."""
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        with torch.no_grad():
-            tree_map(lambda p, u: p.copy_((p + u).to(p.dtype)), params,
-                     updates)
-        return opt_state
-
-
-DEFAULT_PAR = Par()
 
 
 # ================================================================= init =====
@@ -206,38 +151,43 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 # ================================================================ caches =====
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu",
+               par: Optional[Par] = None):
     """Decode caches: {'pro': one per prologue block, 'grp': one per
     pattern position, stacked over groups}.  Attention blocks hold
     {'k', 'v'} of (B, S, Hkv, Dh), S = max_len, or min(window, max_len)
     slots of a ring for ``L`` blocks; ``M`` blocks a :class:`MambaState`,
-    ``R`` blocks an :class:`RWKVState`."""
-    return {"pro": [_position_cache(cfg, k, batch, max_len, (), device)
+    ``R`` blocks an :class:`RWKVState`.  With a ``par`` whose layers run
+    split over ``model``, this rank's block: the heads (and Mamba2's
+    conv channels) divided by :meth:`Par.cache_split`."""
+    par = par or DEFAULT_PAR
+    return {"pro": [_position_cache(cfg, k, batch, max_len, (), device, par)
                     for k in cfg.prologue],
             "grp": [_position_cache(cfg, k, batch, max_len,
-                                    (cfg.n_groups,), device)
+                                    (cfg.n_groups,), device, par)
                     for k in cfg.pattern]}
 
 
 def _position_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                    lead, device):
+                    lead, device, par: Par):
     def zeros(*shape, dtype=dtype_of(cfg)):
         return torch.zeros(tuple(lead) + shape, dtype=dtype, device=device)
 
     if kind in ("A", "S", "L"):
         s = min(cfg.window, max_len) if kind == "L" else max_len
-        return {"k": zeros(batch, s, cfg.n_kv_heads, cfg.head_dim),
-                "v": zeros(batch, s, cfg.n_kv_heads, cfg.head_dim)}
+        hkv = cfg.n_kv_heads // par.cache_split("attn")
+        return {"k": zeros(batch, s, hkv, cfg.head_dim),
+                "v": zeros(batch, s, hkv, cfg.head_dim)}
     if kind == "M":
-        d_inner = 2 * cfg.d_model
+        d_inner = 2 * cfg.d_model // par.cache_split("mamba")
         return MambaState(
             ssm=zeros(batch, d_inner // cfg.ssm_head_dim, cfg.ssm_state,
                       cfg.ssm_head_dim, dtype=torch.float32),
             conv=zeros(batch, cfg.conv_kernel - 1, d_inner))
     if kind == "R":
         n = cfg.ssm_head_dim
-        return RWKVState(wkv=zeros(batch, cfg.d_model // n, n, n,
-                                   dtype=torch.float32),
+        h = cfg.d_model // n // par.cache_split("rwkv")
+        return RWKVState(wkv=zeros(batch, h, n, n, dtype=torch.float32),
                          prev_tm=zeros(batch, cfg.d_model),
                          prev_cm=zeros(batch, cfg.d_model))
     raise ValueError(kind)
@@ -288,19 +238,47 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
     """Train/encode (no cache), prefill (T > 1: writes the cache) and
     decode (T == 1: writes the new token's slot, reads the cache; ``pos``
     a Python int or a 0-d tensor on the device).  Without a cache a
-    ``par`` that takes Ulysses attention runs it instead."""
+    ``par`` that takes Ulysses attention runs it instead.
+
+    The head counts are the weights': a ``par`` that splits the
+    attention over ``model`` hands this rank's columns of ``wq`` (and of
+    ``wk`` / ``wv`` under ``"heads"``) and rows of ``wo``, and the block
+    runs column-parallel in and row-parallel out.  Under
+    ``"q_heads_kv_whole"`` ``wk`` and ``wv`` are whole: this rank's q
+    heads fall in one kv group, and it projects only that group's k and
+    v, or, with a cache (which stays whole), all of them into the cache
+    and attends to that group's."""
     par = par or DEFAULT_PAR
     b, t, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     if cache is None and par.ulysses_ok(cfg, t):
         return par.ulysses_attention(x, p, cfg, kind, positions)
+    split = par.dense_split("attn")
+    h = p["wq"].shape[-1] // dh
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    group = None  # (first, count) of the kv heads this rank attends to
+    if split != "whole":
+        x = par.region_in(x)
+    if split == "q_heads_kv_whole":
+        g = cfg.n_heads // cfg.n_kv_heads
+        group = ((par.model_rank * h) // g, max(h // g, 1))
+        if cache is None:  # project that group alone
+            cut = (group[0] * dh, group[1] * dh)
+            wk, wv = (par.narrow(w, -1, *cut) for w in (wk, wv))
+            if bk is not None:
+                bk, bv = (par.narrow(a, -1, *cut) for a in (bk, bv))
+            group = None
+    hkv = wk.shape[-1] // dh
     q = linear(x, p["wq"], p.get("bq")).reshape(b, t, h, dh)
-    k = linear(x, p["wk"], p.get("bk")).reshape(b, t, hkv, dh)
-    v = linear(x, p["wv"], p.get("bv")).reshape(b, t, hkv, dh)
+    k = linear(x, wk, bk).reshape(b, t, hkv, dh)
+    v = linear(x, wv, bv).reshape(b, t, hkv, dh)
     q, k = _apply_rope(cfg, q, k, positions, pos3)
     q = par.constraint(q, "heads")
     k = par.constraint(k, "kv_heads")
     v = par.constraint(v, "kv_heads")
+
+    def attended(a):  # the kv heads of this rank's q heads
+        return a if group is None else a.narrow(2, *group)
 
     if cache is not None and t == 1:
         s = cache["k"].shape[1]
@@ -312,8 +290,8 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
         else:
             cache["k"][:, slot] = k[:, 0]
             cache["v"][:, slot] = v[:, 0]
-        o = decode_attention(q, cache["k"], cache["v"], pos,
-                             window=cfg.window if kind == "L" else None,
+        o = decode_attention(q, attended(cache["k"]), attended(cache["v"]),
+                             pos, window=cfg.window if kind == "L" else None,
                              ring=ring)
     else:
         if cache is not None:  # prefill: populate the cache
@@ -324,17 +302,24 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
             else:  # ring smaller than the prompt: the last s, rolled
                 cache["k"].copy_(torch.roll(k[:, -s:], t % s, dims=1))
                 cache["v"].copy_(torch.roll(v[:, -s:], t % s, dims=1))
-        o = _prefill_attention(q, k, v, cfg, kind, kernels)
+        o = _prefill_attention(q, attended(k), attended(v), cfg, kind,
+                               kernels)
     o = par.constraint(o, "heads")
-    return linear(o.reshape(b, t, h * dh), p["wo"])
+    y = linear(o.reshape(b, t, h * dh), p["wo"])
+    return y if split == "whole" else par.region_out(y)
 
 
 def mlp_block(x, p, cfg: ModelConfig, kind: str, par: Optional[Par] = None):
     """The MoE MLP (``par.moe``: over the (B*T, D) tokens) in an MoE
-    config's non-``S`` blocks, the dense gated MLP otherwise."""
+    config's non-``S`` blocks, the dense gated MLP otherwise: with a
+    ``par`` that splits it, ``wg`` / ``wu`` column-parallel over this
+    rank's hidden units and ``wd`` row-parallel."""
+    par = par or DEFAULT_PAR
     if cfg.n_experts and kind != "S":
-        return (par or DEFAULT_PAR).moe(x, p, cfg)
-    return gated_mlp(x, p, cfg.act)
+        return par.moe(x, p, cfg)
+    if par.dense_split("mlp") == "whole":
+        return gated_mlp(x, p, cfg.act)
+    return par.region_out(gated_mlp(par.region_in(x), p, cfg.act))
 
 
 def apply_block(x, kind: str, p, cfg: ModelConfig,
@@ -350,7 +335,8 @@ def apply_block(x, kind: str, p, cfg: ModelConfig,
     if kind == "M":
         h, state = mamba2_mix(rms_norm(x, p["ln1"], cfg.norm_eps), p["mamba"],
                               ssm_state=cfg.ssm_state,
-                              head_dim=cfg.ssm_head_dim, state=cache)
+                              head_dim=cfg.ssm_head_dim, state=cache,
+                              par=par)
         if cache is not None:
             for dst, src in zip(cache, state):
                 dst.copy_(src)
@@ -359,11 +345,11 @@ def apply_block(x, kind: str, p, cfg: ModelConfig,
         h, wkv, prev_tm = rwkv6_time_mix(
             layer_norm(x, p["ln1"], p["ln1b"]), p["rwkv"],
             head_dim=cfg.ssm_head_dim, state=cache, scan=kernels.scan,
-            constraint=lambda a: par.constraint(a, "ssm_heads"))
+            constraint=lambda a: par.constraint(a, "ssm_heads"), par=par)
         x = x + h
         h, prev_cm = rwkv6_channel_mix(
             layer_norm(x, p["ln2"], p["ln2b"]), p["rwkv"],
-            None if cache is None else cache.prev_cm)
+            None if cache is None else cache.prev_cm, par=par)
         if cache is not None:
             for dst, src in zip(cache, (wkv, prev_tm, prev_cm)):
                 dst.copy_(src)

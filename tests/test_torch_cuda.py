@@ -165,6 +165,14 @@ def cuda():
     return torch.device("cuda:0")
 
 
+@pytest.fixture
+def cards(cuda):
+    """The number of CUDA cards; skips with fewer than two."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.cuda.device_count()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,padding,act",
@@ -415,13 +423,11 @@ def test_flash_attention_fp32_kernel_refuses_unaligned_tensors(cuda):
 
 
 @pytest.mark.cuda
-def test_fp32_flash_and_scan_run_on_every_card(cuda):
+def test_fp32_flash_and_scan_run_on_every_card(cards):
     """More than 48 KB of shared memory a block is an opt-in held per
     device.  The fp32 flash kernel at D 256 (201,728 bytes) and the fp32
     scan, launched on each card in turn, run and hold their plain
     versions (2e-5, 1e-4) on every card, not only the first."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA devices")
     attn = flash_inputs(1, 2, 1, 100, 256)
     scan = scan_inputs(1, 40, 2, 64, 64)
     for i in range(torch.cuda.device_count()):
@@ -438,6 +444,53 @@ def test_fp32_flash_and_scan_run_on_every_card(cuda):
                 np.testing.assert_allclose(got.cpu().numpy(),
                                            want.cpu().numpy(), rtol=1e-4,
                                            atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_runs_on_every_card(cards):
+    """The bf16 tensor-core kernel at D 256 takes more than 48 KB of
+    shared memory a block, an opt-in held per device: launched on each
+    card in turn, it runs and holds its plain version at 3e-2 on every
+    card, not only the first."""
+    attn = flash_inputs(1, 4, 2, 130, 256)
+    for i in range(cards):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(dev):
+            q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                       for a in attn)
+            before = flash_mod.launches
+            got = flash_mod.flash_attention_cuda(q, k, v, causal=True)
+            want = ref.attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize(dev)
+            assert flash_mod.launches == before + 1
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b"])
+def test_split_forward_over_nccl_matches_unmeshed(cards, arch, tmp_path):
+    """Two ranks of an NCCL world, each on its card: the forward of the
+    arch's smoke config with its dense layers split over a (1, 2) mesh
+    (``MeshPar``: every layer kind ``"heads"``), through the kernel
+    policy's CUDA kernels on each rank's heads, against the unmeshed
+    forward at rtol 1e-5 / atol 1e-5, the CPU tests' bound."""
+    import torch_launch_jobs as jobs
+    from repro_torch.kernels import build
+    from torch_worlds import run_world
+    build.kernel_library()  # built once, before the ranks load it
+    tokens = np.random.default_rng(3).integers(0, 256, (2, 32)).astype(
+        np.int32)
+    ranks = run_world(2, jobs.tp_card, (arch, (1, 2), 0, {"tokens": tokens}),
+                      tmp_path, backend="nccl")
+    for r in ranks:
+        assert set(r["dense"].values()) == {"heads"}
+        kernel = "linear_scan" if arch == "rwkv6-7b" else "flash_attention"
+        assert r["launches"][kernel] > 0, r["launches"]
+        np.testing.assert_allclose(r["meshed"], r["unmeshed"], rtol=1e-5,
+                                   atol=1e-5)
+    assert np.array_equal(ranks[0]["meshed"], ranks[1]["meshed"])
 
 
 @pytest.mark.cuda

@@ -373,7 +373,7 @@ def test_input_specs_are_placed_and_outputs_follow(kind):
     else:
         logits, caches, pos = out
         assert logits.spec == () and pos.spec == ()
-        want = cache_layout(mesh, init_cache(cfg, 4, 16, "meta"))
+        want = cache_layout(mesh, init_cache(cfg, 4, 16, "meta"), cfg)
         assert [_trim(sh.spec) for _, sh in spec_leaves(
             init_cache(cfg, 4, 16, "meta"), caches)] == [
             _trim(s) for _, s in spec_leaves(init_cache(cfg, 4, 16, "meta"),

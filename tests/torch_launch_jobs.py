@@ -89,7 +89,74 @@ def variant(rank, arch, over, shape, moe, ulysses, params, batch):
         shapes = {k: tuple(v.shape) for k, v in
                   leaves_with_paths(par.local_params(placed, t))}
     return {"meshed": y.numpy(), "unmeshed": y0.numpy(),
-            "collectives": par.coll.summary(), "local_shapes": shapes}
+            "collectives": par.coll.summary(), "local_shapes": shapes,
+            "dense": par.describe()["dense"]}
+
+
+def tp_decode(rank, arch, shape, params, prompts, new):
+    """The greedy loop of a session on ``shape`` and of the unmeshed one
+    on the same weights: a prefill then ``new`` decode steps, each
+    step's logits and tokens, and this rank's cache shapes after the
+    prefill; and the meshed session's ``describe()["dense"]``."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.engine import LMConfig, LMSession, SessionConfig
+    from repro_torch.models import lm
+    cfg = _cfg(arch, {})
+    p = lm.from_jax_params(cfg, params)
+    lmc = LMConfig(arch=arch, max_context=32, decode_batch=len(prompts))
+    out = {}
+    for name, m in (("unmeshed", None), ("meshed", mesh(shape))):
+        sess = LMSession(config=SessionConfig(backend="cuda-lm",
+                                              device="cpu", lm=lmc),
+                         params=p, mesh=m)
+        logits, handle = sess.prefill(prompts)
+        shapes = {k: tuple(v.shape)
+                  for k, v in leaves_with_paths(handle.caches)}
+        steps = [logits]
+        for _ in range(new):
+            tok = np.argmax(steps[-1], axis=-1).astype(np.int32)
+            steps.append(sess.decode(handle, tok))
+        out[name] = {"logits": np.stack(steps),
+                     "tokens": np.argmax(np.stack(steps), -1),
+                     "cache_shapes": shapes}
+        if m is not None:
+            out["dense"] = sess.backend.par.describe()["dense"]
+    return out
+
+
+def tp_card(rank, arch, shape, seed, batch):
+    """On this rank's card (an NCCL world): the forward of ``arch``'s
+    smoke config split over ``shape`` and the unmeshed forward, both
+    through the kernel policy's CUDA kernels, from the seeded weights;
+    the whole logits, the kernels' launches in the split forward and
+    ``describe()["dense"]``."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import linear_scan as scan_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import MeshPar
+    from repro_torch.models import lm
+    from repro_torch.models.stack import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _cfg(arch, {})
+    p = tree_map(lambda t: t.to(dev), init_params(
+        cfg, torch.Generator().manual_seed(seed)))
+    par = MeshPar(make_mesh(shape, device_type="cuda"), cfg)
+    placed = par.place_params(p)
+    b = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in batch.items()}
+    n = next(iter(b.values())).shape[0]
+    with torch.inference_mode():
+        before = (flash_mod.launches, scan_mod.launches)
+        y = par.gather_batch(lm.forward(placed, cfg, par.local_batch(b),
+                                        par=par), n)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": flash_mod.launches - before[0],
+                    "linear_scan": scan_mod.launches - before[1]}
+        y0 = lm.forward(p, cfg, b)
+    return {"meshed": y.cpu().numpy(), "unmeshed": y0.cpu().numpy(),
+            "launches": launches, "dense": par.describe()["dense"]}
 
 
 def _meshed_grads(par, cfg, placed, b):

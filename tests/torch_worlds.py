@@ -3,9 +3,10 @@ children import only this module, torch and the port).
 
 ``run_world(n, job, args, tmp)`` starts ``n`` processes with the
 ``spawn`` start method, each rank joining one gloo process group on a
-``FileStore`` under ``tmp``, calls ``job(rank, *args)`` in each (``job``
-a module-level function of an importable module) and returns the ranks'
-results in rank order.  Every child has a deadline: one still running
+``FileStore`` under ``tmp`` (``backend="nccl"``: an NCCL group, rank r
+on card r), calls ``job(rank, *args)`` in each (``job`` a module-level
+function of an importable module) and returns the ranks' results in
+rank order.  Every child has a deadline: one still running
 at the join timeout is killed, and the test fails with what each rank
 wrote.  A child's exception fails the test with its traceback.
 """
@@ -20,16 +21,20 @@ import traceback
 JOIN_TIMEOUT_S = 240
 
 
-def _child(rank, n, tmp, job, args):
+def _child(rank, n, tmp, job, args, backend):
     os.environ["OMP_NUM_THREADS"] = "1"
     out = os.path.join(tmp, f"rank{rank}.pkl")
     try:
         import torch
         import torch.distributed as dist
         torch.set_num_threads(1)
+        device_id = None
+        if backend == "nccl":
+            device_id = torch.device("cuda", rank)
+            torch.cuda.set_device(device_id)
         dist.init_process_group(
-            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), n),
-            rank=rank, world_size=n)
+            backend, store=dist.FileStore(os.path.join(tmp, "store"), n),
+            rank=rank, world_size=n, device_id=device_id)
         result = ("ok", job(rank, *args))
         dist.destroy_process_group()
     except Exception:  # noqa: BLE001 — reported to the test
@@ -39,13 +44,13 @@ def _child(rank, n, tmp, job, args):
     sys.exit(0 if result[0] == "ok" else 1)
 
 
-def run_world(n: int, job, args: tuple, tmp, timeout: float = JOIN_TIMEOUT_S
-              ) -> list:
+def run_world(n: int, job, args: tuple, tmp, timeout: float = JOIN_TIMEOUT_S,
+              backend: str = "gloo") -> list:
     import multiprocessing as mp
     tmp = str(tmp)
     os.makedirs(tmp, exist_ok=True)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_child, args=(r, n, tmp, job, args),
+    procs = [ctx.Process(target=_child, args=(r, n, tmp, job, args, backend),
                          daemon=True) for r in range(n)]
     for p in procs:
         p.start()
