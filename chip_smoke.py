@@ -175,7 +175,9 @@ tuned arch); any failure propagates and the script exits non-zero:
    at full width in bf16 (during its lm phases, on the same weights,
    wrapped as DTensors with no copy) through ``"cuda-lm"`` with its dense
    layers split over ``model`` (``dense``: every kind ``"heads"``; on one
-   rank each block is the whole) and its MoE tensor-parallel and then
+   rank each block is the whole), its residual stream split over T and
+   its loss's logits over the vocabulary (``activations``, ``logits``: on
+   one rank each chunk is the whole) and its MoE tensor-parallel and then
    expert-parallel, lm_main's traffic and graphed decode (each captured
    step holds the split regions' and the MoE's NCCL collectives):
    the unmeshed session's tokens, the prefill logits bit-equal for TP
@@ -993,6 +995,8 @@ def launch_rest(torch, np, counts, reset_counts) -> dict:
     out["train_lm"] = dict(
         arch=cfg.name, steps=3, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         bit_equal=True, metrics=metrics["meshed"],
+        activations=par.describe()["activations"],
+        logits=par.describe()["logits"],
         step_s={k: v for k, v in secs.items()},
         collectives=par.coll.summary(), launches=train_launches)
     del states, p0, p1
@@ -2201,7 +2205,10 @@ def main() -> int:
             out[moe] = dict(
                 mesh=be.describe()["mesh"], backend=dist.get_backend(),
                 decode=be.describe()["decode"], dense=dense,
-                params_wrapped=wrapped, launches=got, collectives=coll,
+                activations={"prefill": "sequence" if be.par.seq_splits(
+                    LM_PROMPT) else "whole", "decode": "sequence"
+                    if be.par.seq_splits(1) else "whole"},
+                logits=be.par.describe()["logits"], params_wrapped=wrapped, launches=got, collectives=coll,
                 tokens_equal=True, prefill_logits_bit_equal=bit_equal,
                 prefill_logits_rel_l2=rel,
                 last_logits_max_abs_diff=float(np.abs(

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention_pallas`
 // in src/repro/kernels/flash_attention.py for bf16 inputs (fp32 inputs
-// take the SIMT kernel of flash_attention.cu).  Same function: q
+// take flash_attention.cu, split TF32 on mma.sync).  Same function: q
 // (B,Hq,T,D), k and v (B,Hkv,S,D), the kv head of q head h is
 // h / (Hq / Hkv); scores q.k * scale in fp32, masked where (causal and
 // kj > qi) or (window and qi - kj >= window), their p 0; online softmax

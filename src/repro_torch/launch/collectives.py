@@ -21,8 +21,13 @@ derivative of the loss.  So ``all_reduce``'s backward is the identity
 ``reduce_scatter``'s an ``all_gather``;
 :meth:`Collectives.replicated_in` is the identity
 forward and an ``all_reduce`` backward (a replicated tensor entering
-rank-specific work), and :meth:`Collectives.gather_out` gathers a split
-tensor back to a replicated one (backward: each rank's own chunk).
+rank-specific work), :meth:`Collectives.gather_out` gathers a split
+tensor back to a replicated one (backward: each rank's own chunk), and
+:meth:`Collectives.take` is its converse: this rank's chunk of a
+replicated tensor (backward: the chunks' gradients gathered, so every
+rank holds the whole).  :meth:`Collectives.all_reduce_max` is the one
+collective outside autograd: the maximum over an axis, of a tensor that
+carries no gradient.
 
 :func:`shard_map` is the counterpart of ``jax.experimental.shard_map``
 for the port's layout: activations are already split over the data
@@ -133,6 +138,14 @@ class Collectives:
     def _take(self, x, axis, dim):
         return x.chunk(self.size(axis), dim)[self.rank(axis)]
 
+    def all_reduce_max(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The elementwise maximum over ``axis`` (replicated result) of a
+        tensor that carries no gradient (counted as an all-reduce)."""
+        self._count("all-reduce", x)
+        out = x.detach().contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group(axis))
+        return out
+
     # ----------------------------------- the autograd-aware wrappers --
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum over ``axis`` (replicated result; backward: identity)."""
@@ -179,6 +192,11 @@ class Collectives:
         (backward: this rank's chunk of the replicated gradient)."""
         return _Op.apply(x, self, "gather_out", (axis, dim))
 
+    def take(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of a replicated tensor
+        (backward: the ranks' chunks of the gradient gathered whole)."""
+        return _Op.apply(x, self, "take", (axis, dim))
+
     def on(self, axis: str) -> "Axis":
         return Axis(self, axis)
 
@@ -192,6 +210,7 @@ _FORWARD = {
     "all_to_all_v": lambda c, x, a, s, r: c._all_to_all_v(x, a, s, r),
     "replicated_in": lambda c, x, a: x.view_as(x),
     "gather_out": lambda c, x, a, d: c._all_gather(x, a, d),
+    "take": lambda c, x, a, d: c._take(x, a, d).contiguous(),
 }
 _BACKWARD = {
     "all_reduce": lambda c, g, a: g,
@@ -201,6 +220,7 @@ _BACKWARD = {
     "all_to_all_v": lambda c, g, a, s, r: c._all_to_all_v(g, a, r, s),
     "replicated_in": lambda c, g, a: c._all_reduce(g, a),
     "gather_out": lambda c, g, a, d: c._take(g, a, d).contiguous(),
+    "take": lambda c, g, a, d: c._all_gather(g, a, d),
 }
 
 

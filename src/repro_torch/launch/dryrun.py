@@ -34,13 +34,13 @@ all-gathers on axes of more than one rank.  The dense layers run split
 over ``model`` as the port runs them (see
 :mod:`repro_torch.launch.sharding`): rank 0's FLOPs are its blocks',
 its argument bytes count its blocks of the weights and caches, and the
-collectives are the split regions' (an all-reduce a row-parallel
-product, the vocabulary's all-gather, Mamba2's all-to-all).  What still
-differs from the reference's count: attention whose heads do not split
-runs whole where the reference splits its head dim, the activations are
-whole over ``model`` between the regions where the reference splits
-their sequence, and the loss reads logits gathered whole where the
-reference's cross entropy reads them split over the vocabulary.
+collectives are the split regions' (under sequence parallelism an
+all-gather into each region and a reduce-scatter out of it, else an
+all-reduce a row-parallel product; Mamba2's all-to-all), the
+vocab-parallel loss's all-reduces of (b, T) vectors, and the sessions'
+logits' all-gather.  What still differs from the reference's count:
+attention whose heads do not split runs whole where the reference
+splits its head dim.
 """
 from __future__ import annotations
 
@@ -71,7 +71,8 @@ def build_step(cfg: ModelConfig, kind: str, batch: int, seq: int, par):
             import torch
             ev = make_eval_step(cfg, PLAIN_KERNELS, par=par)
             return lambda params, b: ev(params, {**b, "labels": torch.zeros(
-                (batch, seq), dtype=torch.int32)})
+                (batch, seq), dtype=torch.int32,
+                device=next(iter(b.values())).device)})
         return make_prefill_step(cfg, max_len=seq, kernels=PLAIN_KERNELS,
                                  par=par)
     if kind == "decode":

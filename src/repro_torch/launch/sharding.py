@@ -32,14 +32,27 @@ the data axes straight into each rank's blocks (reduce-scatter over an
 axis a leaf is split on, all-reduce over one it is not) and all-reduces
 only the squared norms.
 
+The residual stream between the layers takes the reference's
+``"activations"`` rule, sequence parallelism: where the global T
+divides ``model`` (:meth:`MeshPar.seq_splits`, fixed once a forward by
+:meth:`MeshPar.sequence` and reported by ``describe()["activations"]``)
+each rank holds its chunk of T, (b, T / model, D), and runs the norms
+and residual adds on it; where it does not (decode's T = 1, a prompt of
+1,537 on four ranks) the stream is whole over ``model``, as the
+reference's ``spec_for`` falls back.
+
 The dense layers are Megatron-style tensor parallel over ``model``
 (:func:`dense_splits`, reported by ``describe()["dense"]``): each layer
-reads its local head counts from its blocks' shapes, takes its
-replicated input through :meth:`MeshPar.region_in` (the identity; its
-backward all-reduces over ``model``), runs column-parallel products on
-this rank's heads or hidden units and leaves through a row-parallel
-product and :meth:`MeshPar.region_out` (an all-reduce; backward the
-identity).  Per layer kind:
+reads its local head counts from its blocks' shapes, takes the whole
+sequence in through :meth:`MeshPar.region_in` (an all-gather over T,
+backward a reduce-scatter; with a whole stream the identity, backward
+an all-reduce over ``model``), runs column-parallel products on this
+rank's heads or hidden units and leaves through a row-parallel product
+and :meth:`MeshPar.region_out` (a reduce-scatter over T, backward an
+all-gather; with a whole stream an all-reduce, backward the identity).
+A layer kind that runs whole gathers T on entry
+(:meth:`MeshPar.whole_in`) and keeps its own chunk on exit
+(:meth:`MeshPar.whole_out`).  Per layer kind:
 
 * attention, in the reference's priority (its GSPMD constraints,
   ``constraint("heads" | "kv_heads")``): kv heads divide ``model`` ->
@@ -63,29 +76,38 @@ identity).  Per layer kind:
   the decay's low-rank pair whole and its log cut to the local heads,
   the scan on them, ``w_o`` row-parallel; in the channel mix ``w_ck``
   column-parallel, ``w_cv`` row-parallel and reduce-scattered to this
-  rank's channels, which its block of ``w_cr`` gates before they are
-  gathered whole; the wkv cache split, the last tokens whole;
+  rank's channels, which its block of ``w_cr`` gates before they leave
+  (:meth:`MeshPar.channels_out`: gathered whole, or under sequence
+  parallelism one all-to-all that trades the channels for this rank's
+  chunk of T); both mixes gather T once before the token shift; the wkv
+  cache split, the last tokens whole;
 * the vocabulary: each rank looks up the tokens in its embedding rows
-  and the rows are summed over ``model``; the head (or the tied
-  embedding) gives this rank's vocabulary's logits, gathered whole
-  before the loss and the session read them.
+  and the rows are summed over ``model`` (reduce-scattered over T under
+  sequence parallelism); the head (or the tied embedding) gives this
+  rank's vocabulary's logits over the whole T.  The loss reads them
+  split (the reference's ``"logits"`` rule, ``describe()["logits"]``),
+  through a vocab-parallel cross entropy
+  (:func:`~repro_torch.models.lm.vocab_parallel_xent`: three
+  all-reduces of (b, T) vectors, one of them a maximum); the sessions'
+  prefill and decode logits are gathered whole.
 
 A layer kind whose heads (or hidden units, or vocabulary) do not divide
 ``model`` runs whole, its leaves gathered, as do the attention leaves
 where Ulysses runs.  Replicated leaves read inside a split region (the
 per-head vectors, ``ln_x``) are cut there through :meth:`MeshPar.narrow`,
 whose backward sums the ranks' disjoint parts, so their gradients come
-out whole and equal on every ``model`` rank.  What the reference does
-that the port does not: sequence parallelism of the activations between
-the regions (its ``"activations"`` rule), a vocab-parallel cross
-entropy, and the head-dim attention rule.
+out whole and equal on every ``model`` rank; the norms' weights, read
+on the stream's chunk, enter through ``replicated_in`` for the same
+reason (:meth:`MeshPar.sequence`).  What the reference does that the
+port does not: the head-dim attention rule.
 
 Activations are plain local tensors: the batch is split over the data
-axes and replicated over ``model`` between the regions.  Three regions
-the reference writes as explicit ``shard_map``s also split their work
-over ``model`` with explicit collectives: the tensor-parallel MoE
-(:meth:`MeshPar.moe`), the expert-parallel MoE (``moe="ep"``) and
-Ulysses attention (``ulysses=True``).
+axes, and the stream over ``model`` as above.  Three regions the
+reference writes as explicit ``shard_map``s also split their work over
+``model`` with explicit collectives: the tensor-parallel MoE
+(:meth:`MeshPar.moe`: the whole T in, a reduce-scatter out), the
+expert-parallel MoE (``moe="ep"``) and Ulysses attention
+(``ulysses=True``), the last two on the stream's own chunk of T.
 """
 from __future__ import annotations
 
@@ -359,6 +381,8 @@ _SPLIT_LEAVES = {
     "vocab": ("embed", "head"),
 }
 _Q_LEAVES = ("wq", "bq", "wo")  # the attention's under "q_heads_kv_whole"
+# the replicated leaves read on the residual stream itself (the norms)
+_STREAM_LEAVES = ("ln1", "ln2", "ln1b", "ln2b", "final_norm")
 
 
 def dense_splits(mesh, cfg: ModelConfig) -> Dict[str, str]:
@@ -410,6 +434,10 @@ class MeshPar(Par):
         self.ulysses = bool(ulysses)
         self.coll = Collectives(mesh)
         self.dense = dense_splits(mesh, cfg)
+        # the residual stream's layout in the current forward (set by
+        # :meth:`sequence`): this rank's chunk of the sequence, or whole
+        self.chunked, self.seq_t = False, 0
+        self.activations: Optional[str] = None  # the last forward's
 
     @property
     def model_n(self) -> int:
@@ -420,13 +448,20 @@ class MeshPar(Par):
         return self.coll.rank("model")
 
     def describe(self) -> dict:
-        """The mesh, the MoE rule, Ulysses, and ``dense``: how each dense
+        """The mesh, the MoE rule, Ulysses, ``dense``: how each dense
         layer kind runs over ``model`` (:func:`dense_splits`; where
-        Ulysses runs, the attention's leaves are read whole)."""
+        Ulysses runs, the attention's leaves are read whole),
+        ``activations``: the residual stream's layout between the
+        regions in the last forward (``"sequence"``: this rank's chunk
+        of T; ``"whole"``; None before the first), and ``logits``: the
+        loss's logits (``"vocab"``: this rank's vocabulary, or
+        ``"whole"``)."""
         return {"mesh": {a: axis_size(self.mesh, a)
                          for a in axis_names(self.mesh)},
                 "moe": self.moe_rule, "ulysses": self.ulysses,
-                "dense": dict(self.dense)}
+                "dense": dict(self.dense), "activations": self.activations,
+                "logits": ("vocab" if self.dense_split("vocab") == "heads"
+                           else "whole")}
 
     # ----------------------------------------------------- parameters --
     def param_specs(self, params):
@@ -656,12 +691,50 @@ class MeshPar(Par):
         return x
 
     # ------------------------------------------------------------ hooks --
+    def seq_splits(self, t: int) -> bool:
+        """Whether a sequence of ``t`` runs split over ``model`` between
+        the regions: where ``t`` divides it (the reference's
+        ``"activations"`` rule through ``spec_for``)."""
+        return t % self.model_n == 0
+
+    def sequence(self, params, t: int):
+        """Fix the residual stream's layout for a forward over a global
+        sequence of ``t`` (:meth:`seq_splits`).  Split, the norms'
+        weights (read on this rank's chunk only) enter through
+        ``replicated_in``, so their gradients are summed over ``model``:
+        whole on every rank, as :meth:`reduce_grads` takes them."""
+        self.chunked, self.seq_t = self.seq_splits(t), t
+        self.activations = "sequence" if self.chunked else "whole"
+        if not (self.chunked and torch.is_grad_enabled()):
+            return params
+        return unflatten(params, [
+            self.coll.replicated_in(x, "model")
+            if path.split("/")[-1] in _STREAM_LEAVES else x
+            for path, x in leaves_with_paths(params)])
+
+    def seq_len(self, x) -> int:
+        return x.shape[1] * (self.model_n if self.chunked else 1)
+
+    def last_position(self, x):
+        """The last position, held by the last ``model`` rank, brought to
+        every rank (one all-gather of each rank's last row); the stream
+        is whole from here."""
+        if not self.chunked:
+            return x[:, -1:]
+        self.chunked = False
+        return self.coll.all_gather(x[:, -1:], "model", 1)[:, -1:]
+
     def constraint(self, x, kind: str):
-        """The identity.  In the reference a GSPMD sharding constraint
-        fixes where a tensor lives, never its values; the port's split
-        regions cut their tensors themselves, and its activations between
-        them have one layout (split over the data axes, whole over
-        ``model``), so there is nothing to fix."""
+        """The reference's ``"activations"`` rule: a whole (B, T, D)
+        tensor entering the stream of a forward whose sequence splits is
+        cut to this rank's chunk (backward: the chunks' gradients
+        gathered); a chunk stays as it is.  Every other kind is the
+        identity: the split regions cut their tensors themselves, and
+        the loss's logits leave :func:`~repro_torch.models.lm.unembed`
+        split over the vocabulary already."""
+        if kind == "activations" and self.chunked and self.model_n > 1 \
+                and x.shape[1] == self.seq_t:
+            return self.coll.take(x, "model", 1)
         return x
 
     def dense_split(self, kind: str) -> str:
@@ -671,10 +744,29 @@ class MeshPar(Par):
         return self.model_n if self.dense_split(kind) == "heads" else 1
 
     def region_in(self, x):
+        if self.chunked:
+            return self.coll.all_gather(x, "model", 1)
         return self.coll.replicated_in(x, "model")
 
     def region_out(self, x):
+        if self.chunked:
+            return self.coll.reduce_scatter(x, "model", 1)
         return self.coll.all_reduce(x, "model")
+
+    def whole_in(self, x):
+        return self.coll.gather_out(x, "model", 1) if self.chunked else x
+
+    def whole_out(self, x):
+        return self.coll.take(x, "model", 1) if self.chunked else x
+
+    def replicated_in(self, x):
+        return self.coll.replicated_in(x, "model")
+
+    def model_sum(self, x):
+        return self.coll.all_reduce(x, "model")
+
+    def model_max(self, x):
+        return self.coll.all_reduce_max(x, "model")
 
     def scatter_out(self, x, dim: int):
         return self.coll.reduce_scatter(x, "model", dim)
@@ -682,10 +774,18 @@ class MeshPar(Par):
     def gather_out(self, x, dim: int):
         return self.coll.gather_out(x, "model", dim)
 
+    def channels_out(self, x):
+        """Gathered whole over the channels, or under sequence
+        parallelism exchanged for this rank's chunk of T with every
+        channel (one all-to-all; backward: the exchange back)."""
+        if self.chunked:
+            return self.coll.all_to_all(x, "model", 1, x.ndim - 1)
+        return self.coll.gather_out(x, "model", -1)
+
     def narrow(self, x, dim: int, start: int, length: int):
         if length == x.shape[dim]:
             return x
-        return self.region_in(x).narrow(dim, start, length)
+        return self.coll.replicated_in(x, "model").narrow(dim, start, length)
 
     def halves(self, y):
         """Of ``2n`` column pieces ``[a_0 .. a_{n-1} | b_0 .. b_{n-1}]``
@@ -707,30 +807,36 @@ class MeshPar(Par):
         return got.movedim(0, -2).flatten(-2)
 
     def moe(self, x, p, cfg: ModelConfig):
-        """x: (b, T, D) this rank's tokens -> (b, T, D).  EP where the
-        rule asks for it and E and T divide the model axis, else TP.  The
-        reference also requires the global batch to divide the data axes;
-        here the batch was split (or kept whole) before the stack, so the
-        EP region never needs it."""
-        if self.region_rule(x.shape[1]) == "ep":
+        """x: (b, T, D) this rank's tokens, in the stream's layout -> the
+        same layout.  EP where the rule asks for it and E and T divide
+        the model axis, else TP: the whole sequence enters through
+        :meth:`region_in` and the ranks' partial sums leave through
+        :meth:`region_out` (under sequence parallelism an all-gather and
+        a reduce-scatter over T; the capacity counts the whole call's
+        tokens, as in the reference).  The reference also requires the
+        global batch to divide the data axes; here the batch was split
+        (or kept whole) before the stack, so the EP region never needs
+        it."""
+        if self.region_rule(self.seq_len(x)) == "ep":
             return self._moe_ep(x, p, cfg)
-        coll = self.coll
 
         def _moe(x_local, p_local):
             bl, tl, dl = x_local.shape
-            y = moe_mlp(x_local.reshape(bl * tl, dl), p_local,
-                        top_k=cfg.top_k, act=cfg.act,
-                        capacity_factor=cfg.capacity_factor)
-            return coll.all_reduce(y.reshape(bl, tl, dl), "model")
+            return moe_mlp(x_local.reshape(bl * tl, dl), p_local,
+                           top_k=cfg.top_k, act=cfg.act,
+                           capacity_factor=cfg.capacity_factor
+                           ).reshape(bl, tl, dl)
 
-        return shard_map(_moe, coll, ((self.dp, None, None),
-                                      self._region_specs(
-                                          p, _moe_local_specs(p), "tp")),
-                         (self.dp, None, None))(x, p)
+        y = shard_map(_moe, self.coll, (None, self._region_specs(
+            p, _moe_local_specs(p), "tp")), (self.dp, None, None))(
+                self.region_in(x), p)
+        return self.region_out(y)
 
     def _moe_ep(self, x, p, cfg: ModelConfig):
-        """Expert-parallel MoE: tokens split on T over 'model', experts
-        on E (full hidden), all_to_all routing."""
+        """Expert-parallel MoE: tokens split on T over 'model' (the
+        stream's own chunk: T divides the axis), experts on E (full
+        hidden), all_to_all routing."""
+        assert self.chunked, "the EP region takes the stream's T chunk"
         group = self.coll.on("model")
 
         def _moe(x_local, p_local):
@@ -740,10 +846,8 @@ class MeshPar(Par):
                            capacity_factor=cfg.capacity_factor)
             return y.reshape(bl, tl, dl)
 
-        return shard_map(_moe, self.coll, ((self.dp, "model", None),
-                                           self._region_specs(
-                                               p, _ep_specs(p), "ep")),
-                         (self.dp, "model", None))(x, p)
+        return shard_map(_moe, self.coll, (None, self._region_specs(
+            p, _ep_specs(p), "ep")), (self.dp, None, None))(x, p)
 
     def ulysses_ok(self, cfg: ModelConfig, t: int) -> bool:
         """Ulysses attention: q heads and T must divide the model axis;
@@ -761,9 +865,10 @@ class MeshPar(Par):
 
     def ulysses_attention(self, x, p, cfg: ModelConfig, kind: str,
                           positions):
-        """qkv on T-split activations -> all_to_all (T <-> heads) ->
-        full-T attention on H/model local heads -> all_to_all back.  The
-        weights are whole on every rank."""
+        """qkv on the stream's T chunk (T divides the axis) -> all_to_all
+        (T <-> heads) -> full-T attention on H/model local heads ->
+        all_to_all back to the chunk.  The weights are whole on every
+        rank."""
         from ..models.attention_vjp import flash_mha, local_mha
         from ..models.layers import linear, rope
         coll, model_n = self.coll, self.model_n
@@ -798,9 +903,8 @@ class MeshPar(Par):
             return linear(o.reshape(b, t_loc, h * dh), w["wo"])
 
         w_specs = tree_map(lambda t: (None,) * t.ndim, p)
-        return shard_map(_attn, coll, ((self.dp, "model", None), w_specs,
-                                       (self.dp, None)),
-                         (self.dp, "model", None))(x, p, positions)
+        return shard_map(_attn, coll, (None, w_specs, (self.dp, None)),
+                         (self.dp, None, None))(x, p, positions)
 
 
 def spec_leaves(tree, specs) -> list:

@@ -47,7 +47,10 @@ def embed_tokens(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor,
     through in the model's type.  With a ``par`` that splits the
     vocabulary over ``model``, ``params["embed"]`` is this rank's rows:
     it looks up the tokens that fall in them, zeroes the others, and the
-    ranks' rows are summed over ``model`` (one is nonzero: exact)."""
+    ranks' rows are summed over ``model`` (one is nonzero: exact) into
+    the residual stream's layout (``par.region_out``: under sequence
+    parallelism a reduce-scatter over T).  Otherwise the rows are whole,
+    and :func:`forward` cuts them (``par.constraint(x, "activations")``)."""
     if tokens_or_embeds.is_floating_point():
         return tokens_or_embeds.to(dtype_of(cfg))
     par = par or DEFAULT_PAR
@@ -68,33 +71,38 @@ def embed_tokens(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor,
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor,
-            par: Optional[Par] = None) -> torch.Tensor:
+            par: Optional[Par] = None, split_logits: bool = False
+            ) -> torch.Tensor:
     """(B, T, D) -> float32 logits (B, T, V): the products of the model's
     values summed in fp32 and kept in fp32, one vocabulary chunk at a
-    time, so a bf16 model's fp32 head copy stays small.  With a ``par``
-    that splits the vocabulary over ``model`` the head (or the tied
-    embedding) is this rank's vocabulary, and its logits are gathered
-    whole over ``model``."""
+    time, so a bf16 model's fp32 head copy stays small.  ``x`` is in the
+    ``par``'s stream layout; the head reads the whole sequence.  With a
+    ``par`` that splits the vocabulary over ``model`` the head (or the
+    tied embedding) is this rank's vocabulary, and its logits are
+    gathered whole over ``model``, or kept as this rank's (B, T, V /
+    model) with ``split_logits`` (the reference's ``"logits"`` rule, which
+    :func:`loss_fn` reads)."""
     par = par or DEFAULT_PAR
     split = par.dense_split("vocab") != "whole"
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    xf = (par.region_in(x) if split else x).float()
+    xf = (par.region_in(x) if split else par.whole_in(x)).float()
     if head.dtype == torch.float32:
         out = xf @ head
     else:
         v = head.shape[1]
-        out = torch.empty(x.shape[:-1] + (v,), dtype=torch.float32,
+        out = torch.empty(xf.shape[:-1] + (v,), dtype=torch.float32,
                           device=x.device)
         for c0 in range(0, v, UNEMBED_CHUNK):
             out[..., c0:c0 + UNEMBED_CHUNK] = xf @ head[
                 :, c0:c0 + UNEMBED_CHUNK].float()
-    return par.gather_out(out, -1) if split else out
+    return par.gather_out(out, -1) if split and not split_logits else out
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
             kernels: KernelPolicy = DEFAULT_KERNELS, caches=None,
             pos: Optional[int] = None, last_only: bool = False,
-            par: Optional[Par] = None) -> torch.Tensor:
+            par: Optional[Par] = None,
+            split_logits: bool = False) -> torch.Tensor:
     """batch: {'tokens' (B,T) int | 'embeds' (B,T,D), optional
     'positions' (B,T), optional 'positions3' (3,B,T)}.  Returns float32
     logits (B, T, V), or (B, 1, V) of the last position when
@@ -102,12 +110,17 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     position).  ``caches`` are updated in place.  With a mesh ``par``
     the parameters may be DTensors (gathered here, but for the blocks
     that the split layers and the MoE region read as they are) and
-    ``batch`` is this rank's part."""
+    ``batch`` is this rank's part; ``par.sequence`` fixes the residual
+    stream's layout from the global T (under sequence parallelism this
+    rank's chunk of T between the regions), and ``split_logits`` keeps
+    the logits of a vocabulary split over ``model`` as this rank's
+    (:func:`unembed`)."""
     par = par or DEFAULT_PAR
     inp = batch["embeds"] if "embeds" in batch else batch["tokens"]
-    params = par.local_params(params, inp.shape[1], caches is not None)
+    b, t = inp.shape[:2]
+    params = par.sequence(par.local_params(params, t, caches is not None),
+                          t)
     x = par.constraint(embed_tokens(params, cfg, inp, par), "activations")
-    b, t = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = (torch.arange(t, device=x.device)[None]
@@ -116,9 +129,10 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
                     caches=caches, pos=pos, pos3=batch.get("positions3"),
                     par=par)
     if last_only:
-        x = x[:, -1:]
+        x = par.last_position(x)
     return par.constraint(unembed(params, cfg, rms_norm(
-        x, params["final_norm"], cfg.norm_eps), par), "logits")
+        x, params["final_norm"], cfg.norm_eps), par, split_logits),
+        "logits")
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -131,18 +145,45 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any],
     this rank's part, and the sums and the mask's count are summed over
     the data axes before the division: the loss is the whole batch's,
     the same on every rank, and this rank's gradients are its part's
-    share of the whole batch's."""
-    logits = forward(params, cfg, batch, kernels, par=par)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    share of the whole batch's.  Where the vocabulary splits over
+    ``model`` the loss reads this rank's vocabulary's logits only
+    (:func:`vocab_parallel_xent`)."""
+    par = par or DEFAULT_PAR
+    logits = forward(params, cfg, batch, kernels, par=par, split_logits=True)
+    labels = batch["labels"].long()
+    if par.dense_split("vocab") == "whole":
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        lse, gold = vocab_parallel_xent(logits, labels, par)
     nll = lse - gold
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-    par = par or DEFAULT_PAR
     denom = torch.clamp_min(par.data_sum(mask.sum()), 1.0)
     xent = par.data_sum((nll * mask).sum()) / denom
     zl = z_loss * par.data_sum(((lse ** 2) * mask).sum()) / denom
     return xent + zl, {"xent": xent, "z_loss": zl}
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        par: Par):
+    """``(logsumexp, gold logit)`` over a vocabulary split over
+    ``model``, from this rank's (B, T, V / model) fp32 ``logits``: each
+    rank's logsumexp of its rows, their maximum over ``model`` (detached:
+    only a shift), ``lse = max + log(sum over ranks of exp(lse_r -
+    max))``, and the label's logit from the rank whose rows hold it (a
+    masked gather summed over ``model``).  The sums' backward is the
+    identity (every rank computes the same loss), so each rank's gradient
+    reaches its own rows only.  On one rank the numbers are
+    ``torch.logsumexp``'s and ``torch.gather``'s bit for bit."""
+    rows = logits.shape[-1]
+    part = torch.logsumexp(logits, dim=-1)
+    top = par.model_max(part.detach())
+    lse = top + torch.log(par.model_sum(torch.exp(part - top)))
+    idx = labels - par.model_rank * rows
+    mine = (idx >= 0) & (idx < rows)
+    gold = torch.gather(logits, -1, idx.clamp(0, rows - 1)[..., None])[..., 0]
+    return lse, par.model_sum(gold.masked_fill(~mine, 0.0))
 
 
 def _split(batch: Dict[str, torch.Tensor], k: int):

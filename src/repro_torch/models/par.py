@@ -9,8 +9,13 @@ how a layer kind runs over the ``model`` axis, and a split layer computes on
 this rank's blocks of its weights (column-parallel products on its heads
 or hidden units, row-parallel products back to the model width) between
 :meth:`Par.region_in` and :meth:`Par.region_out`, the two conjugate
-operators of Megatron-LM's tensor parallelism.  Here every layer is
-``"whole"`` and every hook the identity.
+operators of Megatron-LM's tensor parallelism (with sequence
+parallelism, an all-gather and a reduce-scatter over the sequence); a
+layer that runs whole takes the whole sequence through
+:meth:`Par.whole_in` and hands back the stream's layout through
+:meth:`Par.whole_out`.  :meth:`Par.sequence` starts a forward: it fixes
+the layout of the residual stream from the global sequence length.  Here
+every layer is ``"whole"`` and every hook the identity.
 """
 from __future__ import annotations
 
@@ -39,6 +44,31 @@ class Par:
 
     def ulysses_ok(self, cfg: ModelConfig, t: int) -> bool:
         return False
+
+    # ------------------------------------------- the residual stream --
+    def sequence(self, params, t: int):
+        """Start a forward over a sequence of ``t``: fix the residual
+        stream's layout, and return ``params`` as the forward reads them
+        (here both as they are)."""
+        return params
+
+    def seq_len(self, x) -> int:
+        """The global sequence length of the residual stream ``x``."""
+        return x.shape[1]
+
+    def last_position(self, x):
+        """The stream's last position, (B, 1, D), whole from here on."""
+        return x[:, -1:]
+
+    def whole_in(self, x):
+        """The stream entering a layer that runs whole: the whole
+        sequence (backward: this rank's part of the gradient)."""
+        return x
+
+    def whole_out(self, x):
+        """A whole layer's output handed back in the stream's layout
+        (backward: the whole gradient)."""
+        return x
 
     def local_params(self, params, t: Optional[int] = None,
                      cached: bool = False):
@@ -94,13 +124,35 @@ class Par:
         return 1
 
     def region_in(self, x):
-        """A replicated tensor entering a split region: the identity
-        (backward: the sum over ``model`` of the ranks' parts)."""
+        """The stream entering a split region, whole on every rank: the
+        identity (backward: the sum over ``model`` of the ranks'
+        parts)."""
         return x
 
     def region_out(self, x):
         """A row-parallel product's partial sums leaving a split region:
-        their sum over ``model`` (backward: the identity)."""
+        their sum over ``model``, in the stream's layout (backward: the
+        identity)."""
+        return x
+
+    def replicated_in(self, x):
+        """A tensor that is whole on every rank entering rank-specific
+        work: the identity (backward: the sum over ``model``)."""
+        return x
+
+    def model_sum(self, x):
+        """Partial sums summed over ``model``, the same on every rank
+        (backward: the identity)."""
+        return x
+
+    def model_max(self, x):
+        """The maximum over ``model`` of a tensor without gradient."""
+        return x
+
+    def channels_out(self, x):
+        """This rank's channels (last dim) of the whole sequence leaving a
+        split region in the stream's layout: the channels gathered whole
+        (backward: this rank's chunk)."""
         return x
 
     def scatter_out(self, x, dim: int):

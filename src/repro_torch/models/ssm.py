@@ -108,15 +108,16 @@ def mamba2_mix(x, p, *, ssm_state: int, head_dim: int, chunk: int = 128,
     ``d_inner`` channels, and ``w_B`` / ``w_C`` / ``w_dt``'s rows, whose
     partial products are summed over ``model`` as one tensor; the
     per-head vectors are read as this rank's heads, and the state is its
-    heads' and channels'."""
+    heads' and channels'.  ``x`` is the residual stream in the ``par``'s
+    layout: the conv and the scan run on the whole sequence after the
+    entry (``region_in``, or ``whole_in`` for a mixer that runs whole)."""
     par = par or DEFAULT_PAR
     split = par.dense_split("mamba") != "whole"
+    x = par.region_in(x) if split else par.whole_in(x)
     b, t, _ = x.shape
     d_inner = p["w_out"].shape[0]  # this rank's channels
     h = d_inner // head_dim
 
-    if split:
-        x = par.region_in(x)
     xz = linear(x, p["w_in"])
     xi, z = (par.halves(xz) if split else xz).chunk(2, dim=-1)
     xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"],
@@ -128,7 +129,7 @@ def mamba2_mix(x, p, *, ssm_state: int, head_dim: int, chunk: int = 128,
     dt_bias, a_log, d_skip = p["dt_bias"], p["A_log"], p["D_skip"]
     if split:
         n = bm.shape[-1]
-        bcd = par.region_in(par.region_out(torch.cat([bm, cm, dt], -1)))
+        bcd = par.replicated_in(par.model_sum(torch.cat([bm, cm, dt], -1)))
         bm, cm, dt = bcd.split([n, n, dt.shape[-1]], -1)
         dt = dt.narrow(-1, par.model_rank * h, h)
         dt_bias, a_log, d_skip = (par.local(a, 0, h)
@@ -148,7 +149,7 @@ def mamba2_mix(x, p, *, ssm_state: int, head_dim: int, chunk: int = 128,
     y = y + xh.float() * d_skip[None, None, :, None]
     y = y.reshape(b, t, d_inner).to(x.dtype) * F.silu(z)
     out = linear(y, p["w_out"])
-    return (par.region_out(out) if split else out,
+    return (par.region_out(out) if split else par.whole_out(out),
             MambaState(ssm=s_final, conv=new_conv))
 
 
@@ -230,9 +231,13 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
     rows of ``w_o`` (row-parallel out); the decay's low-rank pair runs
     whole and its log is cut to this rank's heads, as are ``u_bonus``
     and ``ln_x``; ``state`` holds this rank's heads of the wkv state and
-    the whole last token."""
+    the whole last token.  ``x`` is the residual stream in the ``par``'s
+    layout, gathered whole over T once before the token shift
+    (``whole_in``: the previous token of a chunk's first position lies on
+    another rank); the output leaves in the stream's layout."""
     par = par or DEFAULT_PAR
     split = par.dense_split("rwkv") != "whole"
+    x = par.whole_in(x)  # the token shift reads the previous position
     b, t, d = x.shape
     n = head_dim
     dl = p["w_r"].shape[-1]  # this rank's channels
@@ -246,8 +251,8 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
 
     xr, xk, xv, xw, xg = (lerp(p[f"mu_{c}"]) for c in "rkvwg")
     if split:
-        xr, xk, xv, xg = par.region_in(torch.stack([xr, xk, xv, xg])
-                                       ).unbind(0)
+        xr, xk, xv, xg = par.replicated_in(torch.stack([xr, xk, xv, xg])
+                                           ).unbind(0)
     r = linear(xr, p["w_r"]).reshape(b, t, h, n)
     k = linear(xk, p["w_k"]).reshape(b, t, h, n)
     v = linear(xv, p["w_v"]).reshape(b, t, h, n)
@@ -294,17 +299,22 @@ def rwkv6_time_mix(x, p, *, head_dim: int,
     y = group_norm_heads(y, ln_x.reshape(h, n)[None, None])
     y = y.reshape(b, t, dl).to(x.dtype) * g
     out = linear(y, p["w_o"])
-    return (par.region_out(out) if split else out), s_final, x[:, -1]
+    return ((par.region_out(out) if split else par.whole_out(out)),
+            s_final, x[:, -1])
 
 
 def rwkv6_channel_mix(x, p, state_prev=None, par=None):
     """RWKV6 channel mix.  With a ``par`` that splits RWKV6 over
     ``model``: ``w_ck`` column-parallel, ``w_cv`` row-parallel with its
     sum reduce-scattered to this rank's channels, which the local block
-    of ``w_cr`` (its output channels) gates; the gated channels are then
-    gathered whole."""
+    of ``w_cr`` (its output channels) gates; the gated channels then
+    leave in the stream's layout (``channels_out``: gathered whole, or
+    under sequence parallelism exchanged for this rank's chunk of T).
+    ``x`` is gathered whole over T before the token shift, as in the
+    time mix."""
     par = par or DEFAULT_PAR
     split = par.dense_split("rwkv") != "whole"
+    x = par.whole_in(x)
     b, t, d = x.shape
     prev = (torch.zeros((b, d), dtype=x.dtype, device=x.device)
             if state_prev is None else state_prev.to(x.dtype))
@@ -312,13 +322,14 @@ def rwkv6_channel_mix(x, p, state_prev=None, par=None):
     xk = x + (xx - x) * p["mu_ck"].to(x.dtype)
     xr = x + (xx - x) * p["mu_cr"].to(x.dtype)
     if split:
-        xk, xr = par.region_in(torch.stack([xk, xr])).unbind(0)
+        xk, xr = par.replicated_in(torch.stack([xk, xr])).unbind(0)
     k = torch.square(F.relu(linear(xk, p["w_ck"])))
     kv = linear(k, p["w_cv"])
     if not split:
-        return torch.sigmoid(linear(xr, p["w_cr"])) * kv, x[:, -1]
+        return (par.whole_out(torch.sigmoid(linear(xr, p["w_cr"])) * kv),
+                x[:, -1])
     kv = par.scatter_out(kv, -1)
-    return (par.gather_out(torch.sigmoid(linear(xr, p["w_cr"])) * kv, -1),
+    return (par.channels_out(torch.sigmoid(linear(xr, p["w_cr"])) * kv),
             x[:, -1])
 
 

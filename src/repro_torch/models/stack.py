@@ -26,8 +26,10 @@ The ``par`` argument is the reference's parallelism context: ``None``
 :class:`~repro_torch.models.par.Par` to run the MoE and Ulysses attention
 across a mesh and the dense layers tensor-parallel over ``model``: each
 block reads its local head counts from its weights' shapes, so the same
-code runs whole and on a rank's blocks.  The model code imports no mesh
-machinery.
+code runs whole and on a rank's blocks.  Between the blocks the residual
+stream is in the ``par``'s layout (with sequence parallelism, this
+rank's chunk of T), and each block reads the whole sequence through its
+entry hook.  The model code imports no mesh machinery.
 """
 from __future__ import annotations
 
@@ -238,7 +240,11 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
     """Train/encode (no cache), prefill (T > 1: writes the cache) and
     decode (T == 1: writes the new token's slot, reads the cache; ``pos``
     a Python int or a 0-d tensor on the device).  Without a cache a
-    ``par`` that takes Ulysses attention runs it instead.
+    ``par`` that takes Ulysses attention runs it instead.  ``x`` is the
+    residual stream in the ``par``'s layout (under sequence parallelism
+    this rank's chunk of T); the block reads the whole sequence after
+    its entry (``region_in`` / ``whole_in``), so the prefill writes the
+    caches on the whole of T.
 
     The head counts are the weights': a ``par`` that splits the
     attention over ``model`` hands this rank's columns of ``wq`` (and of
@@ -249,16 +255,15 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
     v, or, with a cache (which stays whole), all of them into the cache
     and attends to that group's."""
     par = par or DEFAULT_PAR
-    b, t, _ = x.shape
     dh = cfg.head_dim
-    if cache is None and par.ulysses_ok(cfg, t):
+    if cache is None and par.ulysses_ok(cfg, par.seq_len(x)):
         return par.ulysses_attention(x, p, cfg, kind, positions)
     split = par.dense_split("attn")
     h = p["wq"].shape[-1] // dh
     wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
     group = None  # (first, count) of the kv heads this rank attends to
-    if split != "whole":
-        x = par.region_in(x)
+    x = par.whole_in(x) if split == "whole" else par.region_in(x)
+    b, t, _ = x.shape
     if split == "q_heads_kv_whole":
         g = cfg.n_heads // cfg.n_kv_heads
         group = ((par.model_rank * h) // g, max(h // g, 1))
@@ -306,19 +311,20 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
                                kernels)
     o = par.constraint(o, "heads")
     y = linear(o.reshape(b, t, h * dh), p["wo"])
-    return y if split == "whole" else par.region_out(y)
+    return par.whole_out(y) if split == "whole" else par.region_out(y)
 
 
 def mlp_block(x, p, cfg: ModelConfig, kind: str, par: Optional[Par] = None):
     """The MoE MLP (``par.moe``: over the (B*T, D) tokens) in an MoE
     config's non-``S`` blocks, the dense gated MLP otherwise: with a
     ``par`` that splits it, ``wg`` / ``wu`` column-parallel over this
-    rank's hidden units and ``wd`` row-parallel."""
+    rank's hidden units and ``wd`` row-parallel; whole, on the whole
+    sequence (``whole_in`` / ``whole_out``)."""
     par = par or DEFAULT_PAR
     if cfg.n_experts and kind != "S":
         return par.moe(x, p, cfg)
     if par.dense_split("mlp") == "whole":
-        return gated_mlp(x, p, cfg.act)
+        return par.whole_out(gated_mlp(par.whole_in(x), p, cfg.act))
     return par.region_out(gated_mlp(par.region_in(x), p, cfg.act))
 
 
@@ -384,7 +390,9 @@ def apply_stack(x, params, cfg: ModelConfig,
     Returns the final activations.  With ``cfg.remat == "full"`` and
     grad mode on, each block is checkpointed, as the reference
     rematerializes each block: the backward replays one block at a time,
-    so the live saved tensors are one block's, not the whole stack's."""
+    so the live saved tensors are one block's, not the whole stack's
+    (under sequence parallelism each block's saved input is this rank's
+    chunk of T)."""
     kernels.validate()
     par = par or DEFAULT_PAR
     remat = cfg.remat == "full" and torch.is_grad_enabled()

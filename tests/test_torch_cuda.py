@@ -469,13 +469,14 @@ def test_bf16_flash_runs_on_every_card(cards):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b", "gemma3-4b"])
 def test_split_forward_over_nccl_matches_unmeshed(cards, arch, tmp_path):
     """Two ranks of an NCCL world, each on its card: the forward of the
     arch's smoke config with its dense layers split over a (1, 2) mesh
-    (``MeshPar``: every layer kind ``"heads"``), through the kernel
-    policy's CUDA kernels on each rank's heads, against the unmeshed
-    forward at rtol 1e-5 / atol 1e-5, the CPU tests' bound."""
+    (``MeshPar``: every layer kind ``"heads"``; T = 32 divides 2, so the
+    residual stream runs split over T), through the kernel policy's CUDA
+    kernels on each rank's heads, against the unmeshed forward at rtol
+    1e-5 / atol 1e-5, the CPU tests' bound."""
     import torch_launch_jobs as jobs
     from repro_torch.kernels import build
     from torch_worlds import run_world
@@ -491,6 +492,29 @@ def test_split_forward_over_nccl_matches_unmeshed(cards, arch, tmp_path):
         np.testing.assert_allclose(r["meshed"], r["unmeshed"], rtol=1e-5,
                                    atol=1e-5)
     assert np.array_equal(ranks[0]["meshed"], ranks[1]["meshed"])
+
+
+@pytest.mark.cuda
+def test_split_train_step_over_nccl_matches_unmeshed(cards, tmp_path):
+    """Two ranks of an NCCL world: one train step of gemma3-4b's smoke
+    config on a (1, 2) mesh, its residual stream split over T and its
+    loss read from each rank's vocabulary (the vocab-parallel cross
+    entropy), against the unmeshed step from the same weights: loss, its
+    parts and the grad norm at rtol 1e-4."""
+    import torch_launch_jobs as jobs
+    from torch_worlds import run_world
+    rng = np.random.default_rng(4)
+    batch = {k: rng.integers(0, 256, (2, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    ranks = run_world(2, jobs.tp_card_train, ("gemma3-4b", (1, 2), 0, batch),
+                      tmp_path, backend="nccl")
+    for r in ranks:
+        assert r["describe"]["activations"] == "sequence"
+        assert r["describe"]["logits"] == "vocab"
+        for key, want in r["unmeshed"].items():
+            np.testing.assert_allclose(r["meshed"][key], want, rtol=1e-4,
+                                       atol=1e-6, err_msg=key)
+    assert ranks[0]["meshed"] == ranks[1]["meshed"]
 
 
 @pytest.mark.cuda

@@ -13,7 +13,21 @@ unmeshed paths and to the JAX package.
   and at 1e-4 (max abs) to JAX's unmeshed ``forward`` on the same weights
   (``from_jax_params``), as
   ``test_parallel_variant_matches_the_unmeshed_forward`` holds them, with
-  each rank's ``describe()["dense"]`` and its split regions' collectives.
+  each rank's ``describe()["dense"]``.  T = 16 divides every mesh's
+  ``model``, so the residual stream runs split over T (sequence
+  parallelism): each block's input is (b, T / n, D) on every rank, and
+  the collectives past the parameters' gathers are, kind by kind, those
+  counted from the layer pattern (an all-gather into each split region
+  and a reduce-scatter out of it), with no all-reduce of a (b, T, D)
+  tensor.  At T = 15 on (1, 2) the stream stays whole (the reference's
+  fallback where T does not divide), and its regions all-reduce.
+* The vocab-parallel cross entropy on (1, 2) and (1, 4) for gemma3-4b
+  (tied embedding) and qwen1.5-110b (its own head): labels in every
+  rank's vocabulary rows and a masked row; the loss, xent and z-loss and
+  the gradients of the logits' producers (the head or tied embedding and
+  the final norm) at 1e-6 to the unmeshed port and at 1e-5 to JAX's
+  ``loss_fn``, and no collective of the loss or its backward moves a
+  tensor with a vocabulary dim.
 * Each rank's blocks as the forward reads them (``local_params``): for
   every leaf of a split dense layer the shape ``param_specs`` gives over
   ``model``, for the others the whole shape (the expert weights are
@@ -76,6 +90,10 @@ FWD_ARCHS = ("gemma3-4b", "qwen1.5-110b", "zamba2-2.7b", "rwkv6-7b",
              "deepseek-moe-16b")
 FWD_CASES = [(a, m) for m in ((1, 2), (2, 2), (1, 4)) for a in FWD_ARCHS] + [
     ("h2o-danube-3-4b", (1, 4))]
+# T = 15 does not divide 2: the residual stream stays whole
+FALLBACK_CASES = [("gemma3-4b", (1, 2), 15)]
+LOSS_CASES = [(a, m) for m in ((1, 2), (1, 4))
+              for a in ("gemma3-4b", "qwen1.5-110b")]
 DECODE_CASES = [(a, (1, 2)) for a in FWD_ARCHS] + [
     ("zamba2-2.7b", (1, 4)), ("h2o-danube-3-4b", (1, 4))]
 DECODE_NEW = 8
@@ -139,12 +157,90 @@ def _inputs(arch):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_logits(arch):
+def _jax_logits(arch, t=16):
     jcfg = JAX_ARCHS[arch].smoke()
     params, batch = _inputs(arch)
     out, _ = jax.jit(lambda p, b: jax_forward(p, jcfg, b, DEFAULT_PAR))(
-        params, {k: jnp.asarray(v) for k, v in batch.items()})
+        params, {k: jnp.asarray(v[:, :t]) for k, v in batch.items()})
     return np.asarray(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _loss_batch(arch):
+    """The (4, 16) tokens, labels reaching every rank's vocabulary rows
+    (one in each eighth of the vocabulary), and a mask with row 2 masked
+    out."""
+    _, batch = _inputs(arch)
+    v = JAX_ARCHS[arch].smoke().vocab_size
+    labels = np.random.default_rng(6).integers(0, v, (4, 16)).astype(np.int32)
+    labels[0, :8] = np.arange(8) * (v // 8) + 3
+    mask = np.ones((4, 16), np.float32)
+    mask[2] = 0.0
+    return {"tokens": batch["tokens"], "labels": labels, "mask": mask}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_loss(arch):
+    """JAX's ``loss_fn`` on the unmeshed model: (loss, aux, grads)."""
+    jcfg = JAX_ARCHS[arch].smoke()
+    params, _ = _inputs(arch)
+    batch = _jax(_loss_batch(arch))
+    (loss, aux), grads = jax.jit(jax.value_and_grad(
+        lambda p: jlm.loss_fn(p, jcfg, batch), has_aux=True))(params)
+    return ({"loss": float(loss), **{k: float(x) for k, x in aux.items()}},
+            _flat(grads))
+
+
+def _predicted(cfg, splits, n, t):
+    """The forward's collectives past the parameters' gathers, by kind,
+    counted from the layer pattern: over T when ``t`` divides ``n``
+    (into a split region an all-gather, out of it a reduce-scatter; a
+    layer that runs whole gathers T), else the whole-T regions' all-reduce
+    out; plus Mamba2's re-cut of its halves and B/C/dt sum, RWKV6's
+    channel exchange, and the vocabulary's logits gathered whole."""
+    chunk = t % n == 0
+    c = {}
+
+    def add(kind, k=1):
+        c[kind] = c.get(kind, 0) + k
+
+    def region():
+        add("all-gather", chunk)
+        add("reduce-scatter" if chunk else "all-reduce")
+
+    def whole():
+        add("all-gather", chunk)
+    if cfg.embed_inputs and splits["vocab"] != "whole":
+        add("reduce-scatter" if chunk else "all-reduce")
+    for kind in cfg.prologue + cfg.pattern * cfg.n_groups:
+        if kind in "ALS":
+            region() if splits["attn"] != "whole" else whole()
+            if cfg.n_experts and kind != "S":
+                region()  # the tensor-parallel MoE
+            else:
+                region() if splits["mlp"] != "whole" else whole()
+        elif kind == "M":
+            if splits["mamba"] == "whole":
+                whole()
+            else:
+                region()
+                add("all-to-all")
+                add("all-reduce")
+        elif kind == "R":
+            if splits["rwkv"] == "whole":
+                whole(), whole()
+            else:
+                whole()  # the time mix's gather before the token shift
+                add("reduce-scatter" if chunk else "all-reduce")
+                whole()  # the channel mix's
+                add("reduce-scatter")
+                add("all-to-all" if chunk else "all-gather")
+    if splits["vocab"] != "whole":
+        add("all-gather", chunk)
+        add("all-gather")
+    else:
+        whole()
+    return {k: v for k, v in c.items() if v}
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,6 +263,18 @@ def _tasks(n):
             tasks.append((f"fwd {arch} {shape}", "variant", dict(
                 arch=arch, over={}, shape=shape, moe="tp", ulysses=False,
                 params=params, batch=batch)))
+    for arch, shape, t in FALLBACK_CASES:
+        if shape[0] * shape[1] == n:
+            params, batch = _inputs(arch)
+            tasks.append((f"fwd {arch} {shape} T{t}", "variant", dict(
+                arch=arch, over={}, shape=shape, moe="tp", ulysses=False,
+                params=params, batch={k: v[:, :t] for k, v in
+                                      batch.items()})))
+    for arch, shape in LOSS_CASES:
+        if shape[0] * shape[1] == n:
+            tasks.append((f"loss {arch} {shape}", "vocab_loss", dict(
+                arch=arch, shape=shape, params=_inputs(arch)[0],
+                batch=_loss_batch(arch))))
     for arch, shape in DECODE_CASES:
         if shape[0] * shape[1] == n:
             params, batch = _inputs(arch)
@@ -216,18 +324,79 @@ def test_split_forward_matches_unmeshed_and_jax(case, request):
         np.testing.assert_allclose(got["meshed"], got["unmeshed"],
                                    rtol=1e-5, atol=1e-5)
         assert np.abs(got["meshed"] - want).max() < 1e-4, rank
-        # the vocabulary's logits gathered over model, the row-parallel
-        # products summed
-        kinds = got["collectives"]["count_by_kind"]
-        assert kinds.get("all-reduce", 0) > 0 and kinds.get(
-            "all-gather", 0) > 0, kinds
-        assert ("all-to-all" in kinds) == ("mamba" in splits), kinds
+        _hold_stream(got, ARCHS[arch].smoke(), splits, shape, 16)
     for r in ranks[1:]:  # the same whole logits on every rank
         assert np.array_equal(r[f"fwd {arch} {shape}"]["meshed"],
                               ranks[0][f"fwd {arch} {shape}"]["meshed"])
     if shape == (1, 4) and "attn" in splits:  # 2 kv heads, 4 ranks
         assert splits.pop("attn") == "q_heads_kv_whole"
     assert set(splits.values()) == {"heads"}
+
+
+def _hold_stream(got, cfg, splits, shape, t):
+    """The residual stream entering each block in the layout T gives,
+    and the forward's collectives those :func:`_predicted` counts."""
+    n = shape[1]
+    chunk = t % n == 0
+    b = 4 // shape[0]
+    assert got["describe"]["activations"] == ("sequence" if chunk
+                                              else "whole")
+    assert got["stream"] == [(b, t // n if chunk else t, cfg.d_model)] * (
+        len(cfg.prologue) + len(cfg.pattern) * cfg.n_groups)
+    kinds = {}
+    for kind, _ in got["stream_collectives"]:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    assert kinds == _predicted(cfg, splits, n, t), kinds
+    wide = [s for k, s in got["stream_collectives"] if k == "all-reduce"
+            and s[-1] == cfg.d_model]
+    assert not wide if chunk else wide, wide
+
+
+@pytest.mark.parametrize("case", FALLBACK_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}-T{c[2]}")
+def test_split_forward_keeps_the_stream_whole_where_t_does_not_divide(
+        case, request):
+    arch, shape, t = case
+    want = _jax_logits(arch, t)
+    splits = dense_splits(_duck(shape), ARCHS[arch].smoke())
+    ranks = _ranks(request, shape)
+    for rank, r in enumerate(ranks):
+        got = r[f"fwd {arch} {shape} T{t}"]
+        np.testing.assert_allclose(got["meshed"], got["unmeshed"],
+                                   rtol=1e-5, atol=1e-5)
+        assert np.abs(got["meshed"] - want).max() < 1e-4, rank
+        _hold_stream(got, ARCHS[arch].smoke(), splits, shape, t)
+        assert np.array_equal(got["meshed"], ranks[0][
+            f"fwd {arch} {shape} T{t}"]["meshed"])
+
+
+@pytest.mark.parametrize("case", LOSS_CASES, ids=_case_id)
+def test_vocab_parallel_loss_matches_unmeshed_and_jax(case, request):
+    arch, shape = case
+    cfg = ARCHS[arch].smoke()
+    want, jgrads = _jax_loss(arch)
+    producers = ("embed" if cfg.tie_embeddings else "head", "final_norm")
+    for r in _ranks(request, shape):
+        got = r[f"loss {arch} {shape}"]
+        assert got["describe"]["logits"] == "vocab"
+        assert got["describe"]["activations"] == "sequence"
+        for key in ("loss", "xent", "z_loss"):
+            np.testing.assert_allclose(got["meshed"][key],
+                                       got["unmeshed"][key], rtol=1e-6,
+                                       atol=1e-6, err_msg=key)
+            np.testing.assert_allclose(got["meshed"][key], want[key],
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+        for path in producers:
+            np.testing.assert_allclose(got["grads"][path],
+                                       got["grads_unmeshed"][path],
+                                       rtol=1e-6, atol=1e-6, err_msg=path)
+            np.testing.assert_allclose(got["grads"][path], jgrads[path],
+                                       rtol=1e-5, atol=1e-5, err_msg=path)
+        # the logits never move: no tensor with a vocabulary dim crosses
+        # ranks; the loss's sums over the vocabulary are (b, T) vectors
+        moved = got["collectives"]
+        assert not [s for _, s in moved if cfg.vocab_size in s], moved
+        assert sum(s == (4, 16) for k, s in moved if k == "all-reduce") >= 3
 
 
 def _model_only(spec):

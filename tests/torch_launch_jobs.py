@@ -69,10 +69,41 @@ def _cfg(arch, over):
     return dataclasses.replace(ARCHS[arch].smoke(), **over)
 
 
+class _Log:
+    """While entered: each collective ``par`` issues as ``(kind, shape)``
+    and the residual stream's shape entering each block."""
+
+    def __init__(self, par):
+        self.par, self.collectives, self.stream = par, [], []
+
+    def __enter__(self):
+        from repro_torch.models import stack
+        coll, count, block = self.par.coll, self.par.coll._count, \
+            stack.apply_block
+
+        def counted(kind, x):
+            self.collectives.append((kind, tuple(x.shape)))
+            count(kind, x)
+
+        def logged(x, *args, **kw):
+            self.stream.append(tuple(x.shape))
+            return block(x, *args, **kw)
+        coll._count, stack.apply_block = counted, logged
+        self._restore = lambda: (setattr(stack, "apply_block", block),
+                                 delattr(coll, "_count"))
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+
 def variant(rank, arch, over, shape, moe, ulysses, params, batch):
     """The meshed forward's whole logits, the unmeshed forward's, the
-    collectives the meshed one issued, and the shapes of the parameters
-    as the meshed forward reads them."""
+    collectives the meshed one issued (all, and those past the
+    parameters' gathers as ``(kind, shape)``), the residual stream's
+    shape entering each block, the shapes of the parameters as the meshed
+    forward reads them, and ``describe()``."""
+    from repro_torch.core.tree import leaves_with_paths
     from repro_torch.launch.sharding import MeshPar
     from repro_torch.models import lm
     cfg = _cfg(arch, over)
@@ -82,15 +113,47 @@ def variant(rank, arch, over, shape, moe, ulysses, params, batch):
     b = _t(batch)
     n, t = next(iter(b.values())).shape[:2]
     with torch.no_grad():
-        y = par.gather_batch(lm.forward(placed, cfg, par.local_batch(b),
-                                        par=par), n)
+        local = par.local_params(placed, t)
+        with _Log(par) as log:
+            y = lm.forward(local, cfg, par.local_batch(b), par=par)
+        y = par.gather_batch(y, n)
         y0 = lm.forward(p, cfg, b)
-        from repro_torch.core.tree import leaves_with_paths
-        shapes = {k: tuple(v.shape) for k, v in
-                  leaves_with_paths(par.local_params(placed, t))}
+        shapes = {k: tuple(v.shape) for k, v in leaves_with_paths(local)}
     return {"meshed": y.numpy(), "unmeshed": y0.numpy(),
             "collectives": par.coll.summary(), "local_shapes": shapes,
-            "dense": par.describe()["dense"]}
+            "stream_collectives": log.collectives, "stream": log.stream,
+            "dense": par.describe()["dense"], "describe": par.describe()}
+
+
+def vocab_loss(rank, arch, shape, params, batch):
+    """``loss_fn`` through the meshed forward and the unmeshed one on
+    the same weights: the loss and its parts, the whole gradients
+    (:func:`_meshed_grads`), the collectives of the meshed loss and its
+    backward as ``(kind, shape)``, and ``describe()``."""
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.launch.sharding import MeshPar
+    from repro_torch.models import lm
+    cfg = _cfg(arch, {})
+    p = lm.from_jax_params(cfg, params)
+    par = MeshPar(mesh(shape), cfg)
+    placed = par.place_params(p)
+    b = _t(batch)
+    local = par.local_params(placed, next(iter(b.values())).shape[1])
+    with _Log(par) as log:
+        live = [x.detach().requires_grad_() for x in leaves(local)]
+        loss, aux = lm.loss_fn(unflatten(local, live), cfg,
+                               par.local_batch(b), par=par)
+        torch.autograd.grad(loss, live)
+    live = [x.detach().requires_grad_() for x in leaves(p)]
+    loss0, aux0 = lm.loss_fn(unflatten(p, live), cfg, b)
+    g0 = unflatten(p, list(torch.autograd.grad(loss0, live)))
+    return {"meshed": {"loss": float(loss), **{k: float(v)
+                                               for k, v in aux.items()}},
+            "unmeshed": {"loss": float(loss0), **{k: float(v)
+                                                  for k, v in aux0.items()}},
+            "grads": _np_flat(_meshed_grads(par, cfg, placed, b)),
+            "grads_unmeshed": _np_flat(g0), "collectives": log.collectives,
+            "describe": par.describe()}
 
 
 def tp_decode(rank, arch, shape, params, prompts, new):
@@ -157,6 +220,40 @@ def tp_card(rank, arch, shape, seed, batch):
         y0 = lm.forward(p, cfg, b)
     return {"meshed": y.cpu().numpy(), "unmeshed": y0.cpu().numpy(),
             "launches": launches, "dense": par.describe()["dense"]}
+
+
+def tp_card_train(rank, arch, shape, seed, batch):
+    """On this rank's card (an NCCL world): one train step of ``arch``'s
+    smoke config split over ``shape`` (the stream over T, the loss over
+    the vocabulary) and one of the unmeshed step, from the seeded weights:
+    each step's metrics and the meshed ``describe()``."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import MeshPar
+    from repro_torch.models import lm
+    from repro_torch.models.stack import init_params
+    from repro_torch.optim import AdamW
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _cfg(arch, {})
+    host = init_params(cfg, torch.Generator().manual_seed(seed))
+    par = MeshPar(make_mesh(shape, device_type="cuda"), cfg)
+    opt = AdamW()
+    b = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in batch.items()}
+    out = {}
+    for name, pr in (("meshed", par), ("unmeshed", None)):
+        p = tree_map(lambda t: t.to(dev, copy=True), host)
+        if pr is None:
+            state = opt.init(p)
+        else:
+            p = pr.place_params(p)
+            state = pr.init_optimizer(opt, p)
+        step = torch.zeros((), dtype=torch.int32, device=dev)
+        _, m = lm.make_train_step(cfg, opt, par=pr)((p, state, step), b)
+        out[name] = {k: float(v) for k, v in m.items()}
+    out["describe"] = par.describe()
+    return out
 
 
 def _meshed_grads(par, cfg, placed, b):

@@ -1,9 +1,11 @@
 """The port's dense layers split over ``model`` on N cards: an LM at full
-width with its depth cut, served on a (1, N) mesh, against one card
-serving it whole.
+width with its depth cut, served (or, with ``--train``, trained) on a
+(1, N) mesh, against one card doing the same whole.
 
     torchrun --nproc-per-node 4 tools/tp_torch.py \\
         [--arch qwen1.5-110b] [--layers 8] [--out tp_torch.json]
+    torchrun --nproc-per-node 4 tools/tp_torch.py --train \\
+        [--arch gemma3-4b] [--layers 10] [--out tp_train.json]
 
 Each rank joins the NCCL group ``torchrun`` starts and takes the card of
 its ``LOCAL_RANK``.  The weights are bf16, random from ``--seed``, drawn
@@ -27,12 +29,29 @@ kernels' ms.  Rank 0 then runs the dry-run of the same two cells
 card) and, once the meshed backend is gone on every rank, the unmeshed
 backend on its own card with the same weights (drawn again from the
 seed): the same traffic, and the relative L2 of the meshed logits
-against its own.
+against its own.  A prefill of 1536 divides the
+mesh, so its residual stream runs split over T (sequence parallelism:
+the regions' all-gathers and reduce-scatters); decode's T = 1 runs it
+whole.
+
+``--train`` (gemma3-4b by default, cut to its prologue and one group of
+layers) trains instead: two steps of the meshed train step
+(``remat="full"``, the arch's ``grad_accum``) on a global batch of
+``--batch`` x 4096 tokens from ``--seed`` (its microbatches split
+over T on every rank, the loss read from each rank's vocabulary: the
+vocab-parallel cross entropy), then, once the meshed state is gone, the
+same steps on one card from the same weights.  Per rank it records the
+seconds of each step, the peak memory over the steps (the parameters
+placed first), the bytes of the state it holds, a step's collectives by
+kind against the dry-run's of the same cell, and ``describe()``; and
+the loss, its parts and the grad norm of each step against the one
+card's.
 
 Prints each card's name and power limit (``nvidia-smi``) first and the
 record, one JSON object, last; writes the record to ``--out`` too when
 given.  Needs
-one card a rank, and one card that holds the whole cut model.
+one card a rank, and one card that holds the whole cut model (in
+training, with its fp32 moments and gradients).
 """
 from __future__ import annotations
 
@@ -48,6 +67,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# --train: the sequence length and the steps on each side
+TRAIN_SEQ, TRAIN_STEPS = 4096, 2
 
 
 def timed_generate(torch, np, backend, prompts, new):
@@ -156,10 +177,109 @@ def dryrun(arch, layers, world, cells):
     return out
 
 
+def train_run(torch, np, cfg, par, dev, batch, args):
+    """``TRAIN_STEPS`` steps of the train step (``par`` None: on
+    one card) from the weights drawn from ``args.seed``: each step's
+    metrics and seconds, the peak memory over the steps, the state's
+    bytes on this card, and on a mesh the last step's collectives and
+    ``describe()``."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.sharding import is_dtensor
+    from repro_torch.models import lm
+    from repro_torch.models.stack import init_params
+    from repro_torch.optim import AdamW, warmup_cosine
+    opt = AdamW(learning_rate=warmup_cosine(3e-4, 2, 100))
+    params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                         dev)
+    if par is None:
+        opt_state = opt.init(params)
+    else:
+        params = par.place_params(params)  # the whole tree is freed here
+        opt_state = par.init_optimizer(opt, params)
+    state = (params, opt_state, torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+    del params, opt_state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = [t.to_local() if is_dtensor(t) else t for t in leaves(state)]
+    held = sum(t.numel() * t.element_size() for t in blocks)
+    del blocks
+    step = lm.make_train_step(cfg, opt, par=par)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        if par is not None:
+            par.coll.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    tokens = args.batch * TRAIN_SEQ
+    rec = dict(step_s=secs, metrics=metrics, state_bytes=held,
+               tokens_per_s=tokens / statistics.median(secs),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if par is not None:
+        rec.update(collectives_step=par.coll.summary(),
+                   describe=par.describe())
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_main(args, torch, np, dist, world, rank, dev, mesh) -> dict:
+    """The ``--train`` record (rank 0's; None on the others)."""
+    from repro_torch.configs.lm_archs import ARCHS
+    from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+    from repro_torch.launch.sharding import MeshPar
+    cfg = dataclasses.replace(ARCHS[args.arch], n_layers=args.layers)
+    tc = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=args.batch, seed=args.seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in token_batch(tc, 0).items()}
+    par = MeshPar(mesh, cfg)
+    rec = dict(rank=rank, device=torch.cuda.get_device_name(dev),
+               dense=par.describe()["dense"],
+               **train_run(torch, np, cfg, par, dev, batch, args))
+    micro = args.batch // cfg.grad_accum
+    rec["logits_bytes_a_microbatch"] = (
+        micro * TRAIN_SEQ * cfg.vocab_size * 4
+        // (world if rec["describe"]["logits"] == "vocab" else 1))
+    ranks = [None] * world
+    dist.all_gather_object(ranks, rec)
+    if rank != 0:
+        dist.barrier()
+        return None
+    dry = dryrun(args.arch, args.layers, world,
+                 [("train_4k", args.batch, TRAIN_SEQ)])["train"]
+    one = train_run(torch, np, cfg, None, dev, batch, args)
+    dist.barrier()
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    return dict(
+        mode="train", arch=args.arch, layers=args.layers, mesh=[1, world],
+        batch=args.batch, seq=TRAIN_SEQ, grad_accum=cfg.grad_accum,
+        remat=cfg.remat, dtype=cfg.dtype, torch=torch.__version__,
+        ranks=ranks, one_card=dict(one, logits_bytes_a_microbatch=(
+            micro * TRAIN_SEQ * cfg.vocab_size * 4)),
+        dryrun=dry,
+        metrics_rel_diff=[{k: rel(m[k], o[k]) for k in o} for m, o in
+                          zip(ranks[0]["metrics"], one["metrics"])],
+        collectives_match_dryrun=all(
+            r["collectives_step"]["count_by_kind"]
+            == dry["collectives"]["count_by_kind"] for r in ranks))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen1.5-110b")
-    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--train", action="store_true",
+                    help="train on the mesh and on one card, not serve")
+    ap.add_argument("--arch", default=None,
+                    help="qwen1.5-110b (serving) or gemma3-4b (--train)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="8 (serving), or the prologue and one group")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=1536)
     ap.add_argument("--new", type=int, default=16)
@@ -184,6 +304,12 @@ def main() -> int:
     from repro_torch.launch.sharding import MeshPar, is_dtensor
     from repro_torch.models.stack import init_params
 
+    if args.arch is None:
+        args.arch = "gemma3-4b" if args.train else "qwen1.5-110b"
+    if args.layers is None:
+        a = ARCHS[args.arch]
+        args.layers = (len(a.prologue) + len(a.pattern) if args.train
+                       else 8)
     world = int(os.environ.get("WORLD_SIZE", 1))
     mesh = make_mesh((1, world))  # the launcher's group; this rank's card
     rank = dist.get_rank()
@@ -193,6 +319,10 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), flush=True)
+    if args.train:  # the training policy launches no hand-written kernel
+        out = train_main(args, torch, np, dist, world, rank, dev, mesh)
+        return _finish(args, dist, out)
+    if rank == 0:
         build.build()  # once, before the other ranks load it
     dist.barrier()
     build.kernel_library()
@@ -261,7 +391,8 @@ def main() -> int:
         agree = [bool(np.array_equal(meshed_tokens[:i + 1], tokens[:i + 1]))
                  for i in range(len(tokens))]
         out = dict(
-            arch=args.arch, layers=args.layers, mesh=[1, world],
+            mode="serve", arch=args.arch, layers=args.layers,
+            mesh=[1, world],
             batch=args.batch, prompt=args.prompt, new_tokens=args.new,
             torch=torch.__version__, ranks=ranks, one_card=alone,
             dryrun=dry,
@@ -276,9 +407,15 @@ def main() -> int:
                 and r["collectives_decode_step"]["count_by_kind"]
                 == dry["decode"]["collectives"]["count_by_kind"]
                 for r in ranks))
-        if args.out:
-            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.out).write_text(json.dumps(out, indent=1))
+    return _finish(args, dist, out)
+
+
+def _finish(args, dist, out) -> int:
+    """Rank 0 writes ``--out`` and prints the record last; every rank
+    waits for it."""
+    if out is not None and args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
     dist.barrier()
     if out is not None:
         print(json.dumps(out), flush=True)
