@@ -75,7 +75,12 @@ tuned arch); any failure propagates and the script exits non-zero:
    deepseek-moe-16b's 16 heads of 128, zamba2-2.7b's shared block's 32
    heads of 80); every bf16 output also within one rounding (2**-8
    relative) of the fp32 function of the same inputs; the scan's
-   two-halves state carry at 1e-5 (N 4, 64 and 128); then two layers at
+   two-halves state carry at 1e-5 (N 4, 64 and 128); flash attention at
+   a query offset (``q_start``: the last quarter of the rows against the
+   whole k and v, the last of four ranks' rows under the head-dim
+   attention rule) at the main path's four layers, head dim 80 and head
+   dim 128 without a mask, both routes at the same bars
+   (``flash_query_offset``); then two layers at
    full width on 4 x 1536 random hidden states: one grok-1-314b layer
    (GQA 48/8 of 128, 8 experts of 32,768, top-2) through both policies
    in bf16 and in fp32 (the gates of ``lm_main`` on the layer's
@@ -191,7 +196,8 @@ tuned arch); any failure propagates and the script exits non-zero:
    ``restore(shardings=)`` of lm-100m's parameters onto the card's mesh
    bit for bit; and the dry-run of gemma3-4b ``train_4k`` on the
    production 16 x 16 mesh, run after every timed phase in a process of
-   its own with no card (FLOPs, rank 0's argument bytes, collectives);
+   its own with no card (FLOPs, rank 0's argument bytes, collectives,
+   and ``dense``: the attention ``"head_dim"``, checked);
 21. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-13
    (LM: the kernel policy's run in ``lm_main`` and its fp32 control's
    prefill, the server's in ``lm_serve``, the tunings of ``lm_tune``),
@@ -328,8 +334,10 @@ TRAIN_LOCAL_CASES = [
 # unmeshed ones only by the order of sums (held at 1e-5 relative L2)
 LAUNCH_ARCH, LAUNCH_MOE, LAUNCH_EP_REL_TOL = "deepseek-moe-16b", ("tp", "ep"), 1e-5
 # the dry-run cell traced on the production 16 x 16 mesh, in a process
-# of its own (the fake backend's group, meta tensors; no card)
-DRYRUN_CELL = ("gemma3-4b", "train_4k")
+# of its own (the fake backend's group, meta tensors; no card), and the
+# attention rule it must take there (4 kv and 8 q heads do not divide 16
+# ranks, the head dim of 256 does)
+DRYRUN_CELL, DRYRUN_ATTN = ("gemma3-4b", "train_4k"), "head_dim"
 # the JAX launch script's model and defaults: lm-100m in fp32, batch 8 x 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 200
 # the .smoke() configs trained card against CPU: local attention with
@@ -908,7 +916,8 @@ def run_dryrun() -> dict:
     """The dry-run of ``DRYRUN_CELL`` on the production mesh, in a
     process of its own that sees no card, run after the timed phases so
     that its CPU work overlaps none of them.  Its record (it must
-    succeed): the mesh, axes, FLOPs, rank 0's argument bytes, the
+    succeed, with the attention ``DRYRUN_ATTN``): the dense layers'
+    rules, the mesh, axes, FLOPs, rank 0's argument bytes, the
     collectives and the seconds."""
     arch, shape = DRYRUN_CELL
     with tempfile.TemporaryDirectory() as out_dir:
@@ -925,10 +934,12 @@ def run_dryrun() -> dict:
                                  f"{proc.stderr[-3000:]}")
         r = json.loads(path.read_text())
     if not r["ok"] or not r["full"]["flops"] > 0 or \
-            not r["full"]["collectives"]["total_bytes"] > 0:
+            not r["full"]["collectives"]["total_bytes"] > 0 or \
+            r["full"]["dense"].get("attn") != DRYRUN_ATTN:
         raise AssertionError(f"the dry-run's record: {r}")
-    return {k: r[k] for k in ("arch", "shape", "mesh", "axes", "full",
-                              "total_s")}
+    return {"dense": r["full"]["dense"],
+            **{k: r[k] for k in ("arch", "shape", "mesh", "axes", "full",
+                                 "total_s")}}
 
 
 def launch_rest(torch, np, counts, reset_counts) -> dict:
@@ -1602,6 +1613,35 @@ def main() -> int:
             lm_err["flash_attention"][key] = max(
                 lm_err["flash_attention"].get(key, 0.0), e)
             del q, k, v, o
+    # a query offset: the last quarter of the rows against the whole k
+    # and v, from q_start = 3 T / 4 (the last of four ranks' rows under
+    # the head-dim attention rule), at the main path's layers, at head
+    # dim 80 and 128 off the tile grid, both routes
+    offset_cases = [(LM_BATCH, hq, hkv, LM_PROMPT, d, True, w, layer)
+                    for layer, (_, (hq, hkv, d), w, _) in flash_main.items()
+                    ] + [(1, 4, 2, 520, 80, True, 32, None),
+                         (2, 4, 2, 400, 128, False, None, None)]
+    offset_err = {}
+    for dtype, tol in ((f32, 2e-5), (bf16, 3e-2)):
+        for b, hq, hkv, t, d, causal, window, layer in offset_cases:
+            start = t - t // 4
+            q, k, v = attn_inputs(b, hq, hkv, t, d, dtype, layer is not None)
+            q = q[:, :, start:]
+            what = (f"flash_attention {dtype} {(b, hq, hkv, t, d, window)} "
+                    f"rows from {start}")
+            o = flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window, q_start=start)
+            e = compare(o, attention_ref(q, k, v, causal=causal,
+                                         window=window, q_start=start),
+                        tol, tol, what)
+            if dtype == bf16:
+                compare(o.float(), attention_ref(
+                    *upcast(q, k, v), causal=causal, window=window,
+                    q_start=start), BF16_ROUND_RTOL, BF16_ROUND_ATOL,
+                    what + " vs fp32")
+            key = str(dtype).replace("torch.", "")
+            offset_err[key] = max(offset_err.get(key, 0.0), e)
+            del q, k, v, o
     scan_cases = [c + (False,) for c in SCAN_CASES] + [
         (1, 200, 2, 64, 64, True), (1, 70, 2, 5, 16, True),
         (LM_BATCH, LM_PROMPT, rwkv_h, rwkv_n, rwkv_n, False)]
@@ -1697,6 +1737,8 @@ def main() -> int:
                                          "atol": BF16_ROUND_ATOL},
                     "state_carry": 1e-5, "padded_head_dim": 2e-5},
          max_abs_err=lm_err, state_carry_err=carry_err,
+         flash_query_offset=dict(cases=len(offset_cases), rows="last quarter",
+                                 max_abs_err=offset_err),
          bf16_main_shape_rel_l2_vs_fp32=main_rel_l2,
          grok_layer=dict(arch=grok.name, batch=LM_BATCH, tokens=LM_PROMPT,
                          experts=grok.n_experts, top_k=grok.top_k,
@@ -2418,6 +2460,7 @@ def main() -> int:
                     max_abs_err=lm_err[kernel]["float32"],
                     bound="split TF32: 3 x operations at 495 TFLOP/s",
                     per_arch=per32)
+                entry["query_offset_max_abs_err"] = offset_err
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

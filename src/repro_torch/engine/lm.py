@@ -52,13 +52,14 @@ class LMSession:
     session draws random weights from ``lm.seed`` on its device.  The
     tuner and the backend share the one copy of the weights.  ``mesh``:
     a ``DeviceMesh`` to serve on (by default ``lm.mesh_shape`` builds
-    one); ``moe`` (``"tp"`` | ``"ep"``) is the
-    :class:`~repro_torch.launch.sharding.MeshPar` MoE rule of a meshed
-    session.
+    one); ``moe`` (``"tp"`` | ``"ep"``) and ``attn_rule`` (``"auto"`` |
+    ``"qshard_kvrep"``) are the
+    :class:`~repro_torch.launch.sharding.MeshPar` MoE and attention
+    rules of a meshed session.
     """
 
     def __init__(self, config=None, *, params=None, mesh=None,
-                 moe: str = "tp"):
+                 moe: str = "tp", attn_rule: str = "auto"):
         if config is None:
             config = SessionConfig(backend="cuda-lm", lm=LMConfig())
         if isinstance(config, LMConfig):
@@ -88,7 +89,8 @@ class LMSession:
         par = None
         if self.mesh is not None:
             from ..launch.sharding import MeshPar
-            par = MeshPar(self.mesh, self.model_cfg, moe=moe)
+            par = MeshPar(self.mesh, self.model_cfg, moe=moe,
+                          attn_rule=attn_rule)
             if params is None:
                 params = init_params(self.model_cfg, torch.Generator(
                     device).manual_seed(lm.seed), device)

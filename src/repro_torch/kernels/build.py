@@ -42,9 +42,9 @@ SIGNATURES = {
     "conv2d_nhwc_bf16": [_P] * 6,
     "maxpool2d_nhwc_f32": [_P] * 4,  # x, y, &PoolArgs, stream
     "maxpool2d_nhwc_bf16": [_P] * 4,
-    "flash_attention_f32": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3
+    "flash_attention_f32": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 4
     + [_F, _P],
-    "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 3
+    "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 4
     + [_F, _P],
     "flash_attention_f32_tiles": [_I, _P, _P],  # d, &block_q, &key_tile
     "linear_scan_f32": [_P] * 7 + [_I] * 5 + [_P],

@@ -7,8 +7,9 @@
 // q (B,Hq,T,D), k and v (B,Hkv,S,D), the kv head of q head h is
 // h / (Hq / Hkv); scores q.k * scale in fp32, masked where (causal and
 // kj > qi) or (window and qi - kj >= window) to -1e30 with their p forced
-// to 0; online softmax with running m, l and acc in fp32; a fully masked
-// row outputs 0.  Tensors are addressed through their (b, h, t) element
+// to 0, query row i at position qi = q_start + i (a rank's rows of a
+// longer sequence; 0 for a whole one); online softmax with running m, l
+// and acc in fp32; a fully masked row outputs 0.  Tensors are addressed through their (b, h, t) element
 // strides, so the model's (B,T,H,D) activations are read and written in
 // place, without a transposed copy; d is contiguous, and every base
 // pointer and (b, h, t) stride is a multiple of 16 bytes (the wrapper
@@ -176,10 +177,12 @@ flash_attention_kernel(const float* __restrict__ q,
   const float* kb = k + b * s.ksb + hk * s.ksh;
   const float* vb = v + b * s.vsb + hk * s.vsh;
 
-  // the kv range any row of this tile can see
+  // the kv range any row of this tile can see (row i at position
+  // q_start + i)
   const int q_last = min(q0 + kBlockQ, s.t) - 1;
-  const int k_begin = s.use_window ? max(0, q0 - s.window + 1) : 0;
-  const int k_end = s.causal ? min(s.s, q_last + 1) : s.s;
+  const int k_begin =
+      s.use_window ? max(0, s.q_start + q0 - s.window + 1) : 0;
+  const int k_end = s.causal ? min(s.s, s.q_start + q_last + 1) : s.s;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
   auto load_tile = [&](int it) {
@@ -192,8 +195,10 @@ flash_attention_kernel(const float* __restrict__ q,
   if (n_tiles > 0) load_tile(0);
   cp_async_commit();
 
-  const int qw0 = q0 + r0;                     // the warp's first row
-  const int qw_last = min(qw0 + 15, s.t - 1);  // < qw0 if it has none
+  // the positions of the warp's first row and of its last (< pw0 if it
+  // has none)
+  const int pw0 = s.q_start + q0 + r0;
+  const int pw_last = s.q_start + min(q0 + r0 + 15, s.t - 1);
   const float* qw = qs + r0 * QK;
   float acc[ND][4];
 #pragma unroll
@@ -212,12 +217,12 @@ flash_attention_kernel(const float* __restrict__ q,
     const int k0 = k_begin + it * BK;
     const int k_last = min(k0 + BK, s.s) - 1;
     // does some row of the warp see some key of the tile, and all of them?
-    const bool any = qw_last >= qw0 && (!s.causal || k0 <= qw_last) &&
-                     (!s.use_window || qw0 - k_last < s.window);
+    const bool any = pw_last >= pw0 && (!s.causal || k0 <= pw_last) &&
+                     (!s.use_window || pw0 - k_last < s.window);
     if (any) {
       const bool full = k0 + BK <= s.s &&
-                        (!s.causal || k0 + BK - 1 <= qw0) &&
-                        (!s.use_window || qw0 + 15 - k0 < s.window);
+                        (!s.causal || k0 + BK - 1 <= pw0) &&
+                        (!s.use_window || pw0 + 15 - k0 < s.window);
       // scores: hi.hi and the corrections in two accumulators
       float sc[NK][4], sx[NK][4];
 #pragma unroll
@@ -248,8 +253,8 @@ flash_attention_kernel(const float* __restrict__ q,
         }
       }
 
-      // online softmax; element j of n tile n is row g + 8 (j / 2), key
-      // k0 + 8 n + 2 tq + (j % 2)
+      // online softmax; element j of n tile n is row g + 8 (j / 2) (at
+      // position pw0 + g + 8 (j / 2)), key k0 + 8 n + 2 tq + (j % 2)
       uint32_t ok = ~0u;  // bit 4 n + j: visible
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -258,7 +263,7 @@ flash_attention_kernel(const float* __restrict__ q,
         for (int j = 0; j < 4; ++j) {
           float x = (sc[n][j] + sx[n][j]) * s.scale;
           if (!full) {
-            const int qi = qw0 + g + 8 * (j / 2);
+            const int qi = pw0 + g + 8 * (j / 2);
             const int kj = k0 + 8 * n + 2 * tq + (j % 2);
             const bool vis = kj < s.s && (!s.causal || kj <= qi) &&
                              (!s.use_window || qi - kj < s.window);
@@ -330,7 +335,7 @@ flash_attention_kernel(const float* __restrict__ q,
     sum += __shfl_xor_sync(~0u, sum, 1);
     sum += __shfl_xor_sync(~0u, sum, 2);
     const float inv = 1.f / (sum == 0.f ? 1.f : sum);  // masked row -> 0
-    const int qi = qw0 + g + 8 * r;
+    const int qi = pw0 - s.q_start + g + 8 * r;
     if (qi >= s.t) continue;
     float* orow = ob + qi * s.ost + 2 * tq;
 #pragma unroll

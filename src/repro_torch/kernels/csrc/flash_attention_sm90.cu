@@ -6,7 +6,9 @@
 // take flash_attention.cu, split TF32 on mma.sync).  Same function: q
 // (B,Hq,T,D), k and v (B,Hkv,S,D), the kv head of q head h is
 // h / (Hq / Hkv); scores q.k * scale in fp32, masked where (causal and
-// kj > qi) or (window and qi - kj >= window), their p 0; online softmax
+// kj > qi) or (window and qi - kj >= window), their p 0, query row i at
+// position qi = q_start + i (a rank's rows of a longer sequence; 0 for a
+// whole one); online softmax
 // with running m, l and acc in fp32; a fully masked row outputs 0; the
 // output rounded once to bf16.  Tensors are addressed through their
 // (b, h, t) element strides, so the model's (B,T,H,D) activations are
@@ -285,21 +287,22 @@ __device__ __forceinline__ void issue_pv(float (&acc)[Tiles<D>::kDepth / 2],
 }
 
 // scores of the kv tile at k0 -> p in place (masked where a pair is not
-// visible, on tiles that cross an edge for this warp's rows), the running
-// max m and sums l updated; alpha rescales what was summed before
+// visible, on tiles that cross an edge for this warp's rows, the first at
+// position pos_w), the running max m and sums l updated; alpha rescales
+// what was summed before
 __device__ __forceinline__ void online_softmax(float (&sc)[kBK / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2],
                                                const FlashShape& s, int k0,
-                                               int row_w, float c2) {
+                                               int pos_w, float c2) {
   const int g = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
-  const bool edge = k0 + kBK > s.s || (s.causal && k0 + kBK - 1 > row_w) ||
-                    (s.use_window && row_w + 15 - k0 >= s.window);
+  const bool edge = k0 + kBK > s.s || (s.causal && k0 + kBK - 1 > pos_w) ||
+                    (s.use_window && pos_w + 15 - k0 >= s.window);
 #pragma unroll
   for (int i = 0; i < kBK / 2; ++i) {
     float x = sc[i] * c2;
     if (edge) {
-      const int qi = row_w + g + (i % 4 / 2) * 8;
+      const int qi = pos_w + g + (i % 4 / 2) * 8;
       const int kj = k0 + i / 4 * 8 + 2 * tq + (i & 1);
       const bool ok = kj < s.s && !(s.causal && kj > qi) &&
                       !(s.use_window && qi - kj >= s.window);
@@ -369,11 +372,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = blockIdx.x / s.hq;
   const int hk = h / (s.hq / s.hkv);
 
-  // the kv range any row of this tile can see, in whole tiles from 0
+  // the kv range any row of this tile can see, in whole tiles from 0 (row
+  // i at position q_start + i)
   const int q_last = min(q0 + kBlockQ, s.t) - 1;
   const int k_begin =
-      (s.use_window ? max(0, q0 - s.window + 1) : 0) / kBK * kBK;
-  const int k_end = s.causal ? min(s.s, q_last + 1) : s.s;
+      (s.use_window ? max(0, s.q_start + q0 - s.window + 1) : 0) / kBK * kBK;
+  const int k_end = s.causal ? min(s.s, s.q_start + q_last + 1) : s.s;
   const int n_kt = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
@@ -422,7 +426,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   float m[2] = {kNoMax, kNoMax};  // rows g and g + 8 of the warp
   float l[2] = {0.f, 0.f};        // this thread's part of the row sums
   const float c2 = s.scale * kLog2e;
-  const int row_w = q0 + warp * 16;  // the warp's first q row
+  const int pos_w = s.q_start + q0 + warp * 16;  // the warp's first position
   const int q_row0 = wg * 64;        // the warpgroup's first row in q
   auto wait_full = [&](uint32_t full, int i) {
     mbar_wait(full + 8 * (i % kStages), (i / kStages) & 1);
@@ -434,7 +438,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   auto scores_to_p = [&](int i) {
     fence_regs<kBK / 2>(sc);
     mbar_arrive(free_k + 8 * (i % kStages));
-    online_softmax(sc, m, l, alpha, s, k_begin + i * kBK, row_w, c2);
+    online_softmax(sc, m, l, alpha, s, k_begin + i * kBK, pos_w, c2);
   };
 
   if (n_kt > 0) {  // p of the first tile
@@ -490,7 +494,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     float lr = l[r];
     lr += __shfl_xor_sync(~0u, lr, 1);
     lr += __shfl_xor_sync(~0u, lr, 2);
-    const int qi = row_w + g + r * 8;
+    const int qi = pos_w - s.q_start + g + r * 8;
     if (qi >= s.t) continue;
     const float inv = 1.f / (lr == 0.f ? 1.f : lr);  // masked row -> 0
 #pragma unroll

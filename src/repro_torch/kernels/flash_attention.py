@@ -78,10 +78,12 @@ def _check_aligned(t: torch.Tensor, name: str) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         q_start: int = 0) -> torch.Tensor:
     """q (B,Hq,T,D), k/v (B,Hkv,S,D), fp32 or bf16 alike, on one CUDA
-    device; Hq % Hkv == 0, D in :data:`HEAD_DIMS`.  Launches on the
-    current stream."""
+    device; Hq % Hkv == 0, D in :data:`HEAD_DIMS`; query row i at
+    position ``q_start + i`` for the masks (``q_start >= 0``).  Launches
+    on the current stream."""
     global launches, launches_f32
     check_no_grad("flash_attention", q, k, v)
     _check(q, "q", None, None)
@@ -96,6 +98,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{hq} q heads are no multiple of {hkv} kv heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if q_start < 0:
+        raise ValueError(f"q_start {q_start} is negative")
     o = torch.empty_like(q)  # q's strides: (B,T,H,D) memory stays so
     if o.numel() == 0:
         return o
@@ -111,7 +115,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3],
             int(bool(causal)), int(window is not None),
-            0 if window is None else int(window), scale,
+            0 if window is None else int(window), int(q_start), scale,
             current_stream(q.device))
     check_launch(rc, "flash_attention")
     with _count_lock:

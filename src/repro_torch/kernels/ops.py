@@ -35,10 +35,13 @@ def maxpool2d(x: torch.Tensor, *, size: Tuple[int, int] = (2, 2),
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,Hq,T,D), k/v (B,Hkv,S,D) -> (B,Hq,T,D) in q's type."""
+                    scale: Optional[float] = None,
+                    q_start: int = 0) -> torch.Tensor:
+    """q (B,Hq,T,D), k/v (B,Hkv,S,D) -> (B,Hq,T,D) in q's type; query
+    row i at position ``q_start + i`` for the masks."""
     fn = attention_ref if q.device.type == "cpu" else flash_attention_cuda
-    return fn(q, k, v, causal=causal, window=window, scale=scale)
+    return fn(q, k, v, causal=causal, window=window, scale=scale,
+              q_start=q_start)
 
 
 def linear_scan(decay: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

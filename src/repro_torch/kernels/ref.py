@@ -81,11 +81,13 @@ def maxpool2d_ref(x, *, size=(2, 2), strides=None):
 
 
 def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
-                  scale: Optional[float] = None):
+                  scale: Optional[float] = None, q_start: int = 0):
     """Plain version of ``csrc/flash_attention.cu`` (fp32) and
     ``csrc/flash_attention_sm90.cu`` (bf16): dense masked softmax
     attention in fp32; q (B,Hq,T,D), k/v (B,Hkv,S,D), the kv head of q
-    head h is h // (Hq // Hkv).  Masked scores are -1e30 and their p is
+    head h is h // (Hq // Hkv).  Query row i is at position
+    ``q_start + i`` for the causal and window masks (a rank's rows of a
+    longer sequence); key j at j.  Masked scores are -1e30 and their p is
     forced to 0, so a fully masked row gives 0; output in ``q.dtype``."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -93,7 +95,7 @@ def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
     qg = q.float().reshape(b, hkv, hq // hkv, t, d)
     kf = k.float()[:, :, None]
     logits = (qg @ kf.transpose(-1, -2)) * scale       # (B,Hkv,G,T,S)
-    qi = torch.arange(t, device=q.device)[:, None]
+    qi = torch.arange(q_start, q_start + t, device=q.device)[:, None]
     kj = torch.arange(s, device=q.device)[None, :]
     mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
     if causal:

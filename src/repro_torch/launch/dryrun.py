@@ -22,7 +22,9 @@ through the plain one (the CUDA kernels take only tensors on the card;
 their plain versions are the same functions).  Per variant (``full``, or ``g1`` / ``g2``
 with ``--probe``: one and two groups of layers, ``grad_accum=1``) it
 records ``flops`` (``FlopCounterMode``, rank 0's, the backward and any
-rematerialization included), ``memory.argument_bytes`` (the bytes of
+rematerialization included), ``dense`` (``MeshPar.describe()["dense"]``:
+how each dense layer kind runs over ``model`` under the default
+attention rule), ``memory.argument_bytes`` (the bytes of
 rank 0's blocks of the step's arguments) and ``memory.output_bytes``
 (of its outputs), ``collectives`` (the port's counted wrappers:
 ``bytes_by_kind``, ``count_by_kind``, ``total_bytes``) and ``trace_s``.
@@ -38,9 +40,11 @@ collectives are the split regions' (under sequence parallelism an
 all-gather into each region and a reduce-scatter out of it, else an
 all-reduce a row-parallel product; Mamba2's all-to-all), the
 vocab-parallel loss's all-reduces of (b, T) vectors, and the sessions'
-logits' all-gather.  What still differs from the reference's count:
-attention whose heads do not split runs whole where the reference
-splits its head dim.
+logits' all-gather.  Attention whose heads do not divide ``model`` and
+whose head dim does runs the reference's head-dim rule: a train or
+prefill step on each rank's rows of T, its k and v gathered over T; a
+decode step on each rank's slice of the head dim, its partial scores
+all-reduced.
 """
 from __future__ import annotations
 
@@ -179,6 +183,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             result[tag] = {
                 "trace_s": round(trace_s, 2),
                 "flops": float(fc.get_total_flops()),
+                "dense": par.describe()["dense"],
                 "memory": {"argument_bytes": _local_bytes(args),
                            "output_bytes": _local_bytes(out)},
                 "collectives": par.coll.summary(),

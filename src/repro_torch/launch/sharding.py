@@ -12,13 +12,11 @@ None; :func:`to_placements` turns it into DTensor placements.  The
 rule functions read a mesh through :func:`~repro_torch.launch.mesh.axis_names`
 and :func:`~repro_torch.launch.mesh.axis_size`, so they take a
 ``DeviceMesh`` or a JAX-style stand-in with ``axis_names`` and a
-``shape`` mapping.  Two of the reference's environment knobs are
-arguments here: ``NNCG_MOE`` is ``moe="tp" | "ep"`` and
-``NNCG_ULYSSES`` is ``ulysses``, each defaulting to the reference's
-behaviour with the variable unset.  ``NNCG_ATTN_RULE`` has no
-counterpart: the port's attention split (below) takes the reference's
-second rule (``"qshard_kvrep"``) wherever it applies, and never its
-third.
+``shape`` mapping.  The reference's three environment knobs are
+arguments here: ``NNCG_MOE`` is ``moe="tp" | "ep"``, ``NNCG_ULYSSES``
+is ``ulysses`` and ``NNCG_ATTN_RULE`` is ``attn_rule="auto" |
+"qshard_kvrep"``, each defaulting to the reference's behaviour with the
+variable unset.
 
 :class:`MeshPar` runs the model on a mesh in PyTorch's idiom, not
 GSPMD's.  Parameters are stored as DTensors placed by
@@ -55,15 +53,38 @@ A layer kind that runs whole gathers T on entry
 (:meth:`MeshPar.whole_out`).  Per layer kind:
 
 * attention, in the reference's priority (its GSPMD constraints,
-  ``constraint("heads" | "kv_heads")``): kv heads divide ``model`` ->
-  q and kv heads split, and so are the decode caches (``"heads"``);
-  else q heads divide and each rank's q heads fall in one kv group ->
-  q heads split, ``wk`` / ``wv`` read whole and each rank projects only
+  ``constraint("heads" | "kv_heads")``), all four of its rules: kv
+  heads divide ``model`` -> q and kv heads split, and so are the decode
+  caches (``"heads"``); else, under ``attn_rule="qshard_kvrep"`` only,
+  q heads divide and each rank's q heads fall in one kv group -> q
+  heads split, ``wk`` / ``wv`` read whole and each rank projects only
   its group's k and v, or, with a cache, which stays whole, all of them
-  (``"q_heads_kv_whole"``); else whole.  The reference's third rule
-  splits the head dim; that needs the scores summed over ``model``
-  before the softmax, which a fused flash kernel cannot take, so the
-  port runs such attention whole;
+  (``"q_heads_kv_whole"``); else the head dim divides -> the decode
+  caches split on the head dim, as the reference's ``cache_specs``
+  splits them (``"head_dim"``); else whole.  Under ``"head_dim"`` a
+  decode step takes the reference's split literally: this rank's stored
+  columns of ``wq`` / ``wk`` / ``wv`` and rows of ``wo``, q, k and v
+  gathered (a few KB) and rotated whole (RoPE pairs d with d + Dh/2),
+  this rank's slice of the head dim written to its cache, the partial
+  scores q.k^T summed over ``model`` (one (b, Hkv, G, S) fp32 tensor a
+  layer) before the mask and the softmax, p.v on the slice, o gathered
+  for this rank's rows of ``wo``.  Prefill and training split the same
+  attention over ``model`` by query rows instead, for two reasons: a
+  fused flash kernel cannot take partial scores, and summing them would
+  all-reduce a (b, H, T, T) fp32 tensor every layer (about 2 GB a
+  global layer's forward at ``train_4k``'s 4 x 4096 microbatch, against
+  about 70 MB for the gathers below).  There the attention's leaves are
+  read whole (entering through ``replicated_in``, so their gradients
+  are summed over ``model``), and each rank projects q, k and v on its
+  chunk of T, rotates them at those rows' positions, all-gathers k and
+  v over T (backward: a reduce-scatter), runs the flash kernels for its
+  rows against the whole k and v from query position ``rank * T / n``,
+  and applies ``wo`` to its rows, which are the stream's chunk already;
+  a prefill writes its slice of the head dim of the rotated k and v to
+  its cache.  Causal work is uneven over contiguous rows: the last rank
+  attends to about (2n - 1) / n^2 of the pairs, the first to 1 / n^2.
+  Where the stream is whole (T does not divide ``model``) every rank
+  runs the whole attention, and writes the same cache slice;
 * the dense gated MLP: ``wg`` / ``wu`` column-parallel, ``wd``
   row-parallel;
 * Mamba2: ``w_in`` column-parallel (its stored chunk of the ``xi | z``
@@ -98,8 +119,8 @@ per-head vectors, ``ln_x``) are cut there through :meth:`MeshPar.narrow`,
 whose backward sums the ranks' disjoint parts, so their gradients come
 out whole and equal on every ``model`` rank; the norms' weights, read
 on the stream's chunk, enter through ``replicated_in`` for the same
-reason (:meth:`MeshPar.sequence`).  What the reference does that the
-port does not: the head-dim attention rule.
+reason (:meth:`MeshPar.sequence`), as do the attention's leaves where
+``"head_dim"`` runs on rows of T.
 
 Activations are plain local tensors: the batch is split over the data
 axes, and the stream over ``model`` as above.  Three regions the
@@ -123,6 +144,7 @@ from .collectives import Collectives, shard_map
 from .mesh import axis_names, axis_size, dp_axes
 
 MOE_RULES = ("tp", "ep")
+ATTN_RULES = ("auto", "qshard_kvrep")
 
 
 def _fit(mesh, dim_size: int, axes) -> Optional[Any]:
@@ -385,11 +407,20 @@ _Q_LEAVES = ("wq", "bq", "wo")  # the attention's under "q_heads_kv_whole"
 _STREAM_LEAVES = ("ln1", "ln2", "ln1b", "ln2b", "final_norm")
 
 
-def dense_splits(mesh, cfg: ModelConfig) -> Dict[str, str]:
+def dense_splits(mesh, cfg: ModelConfig,
+                 attn_rule: str = "auto") -> Dict[str, str]:
     """How each dense layer kind of ``cfg`` runs over ``model`` (see the
-    module docstring): ``"heads"``, ``"q_heads_kv_whole"`` (attention)
-    or ``"whole"``, for the kinds the config has (``"attn"``, ``"mlp"``:
-    the dense MLP, ``"mamba"``, ``"rwkv"``, ``"vocab"``)."""
+    module docstring): ``"heads"``, ``"q_heads_kv_whole"`` or
+    ``"head_dim"`` (attention) or ``"whole"``, for the kinds the config
+    has (``"attn"``, ``"mlp"``: the dense MLP, ``"mamba"``, ``"rwkv"``,
+    ``"vocab"``).  The attention takes the reference's priority
+    (``MeshPar.constraint("heads" | "kv_heads")``): kv heads divide
+    ``model``; under ``attn_rule="qshard_kvrep"`` only, q heads divide
+    and each rank's fall in one kv group; the head dim divides; else
+    whole."""
+    if attn_rule not in ATTN_RULES:
+        raise ValueError(f"attn_rule {attn_rule!r}; expected one of "
+                         f"{ATTN_RULES}")
     n = axis_size(mesh, "model")
     kinds = set(cfg.prologue + cfg.pattern)
 
@@ -400,8 +431,11 @@ def dense_splits(mesh, cfg: ModelConfig) -> Dict[str, str]:
         h, hkv = cfg.n_heads, cfg.n_kv_heads
         if hkv % n == 0:
             out["attn"] = "heads"
-        elif h % n == 0 and (h // hkv) % (h // n) == 0:
+        elif attn_rule == "qshard_kvrep" and h % n == 0 \
+                and (h // hkv) % (h // n) == 0:
             out["attn"] = "q_heads_kv_whole"
+        elif cfg.head_dim % n == 0:
+            out["attn"] = "head_dim"
         else:
             out["attn"] = "whole"
         if "S" in kinds or not cfg.n_experts:
@@ -421,10 +455,12 @@ class MeshPar(Par):
     its ``model`` slice of the experts' hidden dim and the outputs are
     summed; ``"ep"``: tokens split on T over ``model`` and sent to their
     experts' owners); ``ulysses=True`` runs training and prefill
-    attention as Ulysses sequence parallelism."""
+    attention as Ulysses sequence parallelism; ``attn_rule`` is the
+    reference's ``NNCG_ATTN_RULE`` (``"auto"``, its default, or
+    ``"qshard_kvrep"``: :func:`dense_splits`)."""
 
     def __init__(self, mesh, cfg: ModelConfig, *, moe: str = "tp",
-                 ulysses: bool = False):
+                 ulysses: bool = False, attn_rule: str = "auto"):
         if moe not in MOE_RULES:
             raise ValueError(f"moe {moe!r}; expected one of {MOE_RULES}")
         self.mesh = mesh
@@ -432,8 +468,9 @@ class MeshPar(Par):
         self.dp = dp_axes(mesh)
         self.moe_rule = moe
         self.ulysses = bool(ulysses)
+        self.attn_rule = attn_rule
         self.coll = Collectives(mesh)
-        self.dense = dense_splits(mesh, cfg)
+        self.dense = dense_splits(mesh, cfg, attn_rule)
         # the residual stream's layout in the current forward (set by
         # :meth:`sequence`): this rank's chunk of the sequence, or whole
         self.chunked, self.seq_t = False, 0
@@ -448,9 +485,10 @@ class MeshPar(Par):
         return self.coll.rank("model")
 
     def describe(self) -> dict:
-        """The mesh, the MoE rule, Ulysses, ``dense``: how each dense
-        layer kind runs over ``model`` (:func:`dense_splits`; where
-        Ulysses runs, the attention's leaves are read whole),
+        """The mesh, the MoE rule, Ulysses, the attention rule asked for
+        (``attn_rule``), ``dense``: how each dense layer kind runs over
+        ``model`` (:func:`dense_splits`; where Ulysses runs, it takes
+        precedence and the attention's leaves are read whole),
         ``activations``: the residual stream's layout between the
         regions in the last forward (``"sequence"``: this rank's chunk
         of T; ``"whole"``; None before the first), and ``logits``: the
@@ -459,6 +497,7 @@ class MeshPar(Par):
         return {"mesh": {a: axis_size(self.mesh, a)
                          for a in axis_names(self.mesh)},
                 "moe": self.moe_rule, "ulysses": self.ulysses,
+                "attn_rule": self.attn_rule,
                 "dense": dict(self.dense), "activations": self.activations,
                 "logits": ("vocab" if self.dense_split("vocab") == "heads"
                            else "whole")}
@@ -553,7 +592,8 @@ class MeshPar(Par):
         over ``model``, gathered over the data axes only: the dense
         leaves of every layer that runs split (:func:`dense_splits`;
         the attention's whole where Ulysses runs, a step without caches
-        of a ``t`` it takes), and the expert weights (leaves of a dict
+        of a ``t`` it takes, and under ``"head_dim"`` but in a decode
+        step, ``t`` 1 with caches), and the expert weights (leaves of a dict
         that holds a ``router``) whose ``model`` split is on the dim the
         MoE region of :meth:`region_rule` splits.  Plain tensors are
         taken as they are."""
@@ -564,7 +604,8 @@ class MeshPar(Par):
         dims = self._region_dims(self.region_rule(t)) if moe else {}
         model = axis_names(self.mesh).index("model")
         attn_whole = (t is not None and not cached
-                      and self.ulysses_ok(self.cfg, t))
+                      and self.ulysses_ok(self.cfg, t)) or (
+            self.dense.get("attn") == "head_dim" and not (cached and t == 1))
 
         def leaf(path, x):
             if not is_dtensor(x):
@@ -702,14 +743,22 @@ class MeshPar(Par):
         sequence of ``t`` (:meth:`seq_splits`).  Split, the norms'
         weights (read on this rank's chunk only) enter through
         ``replicated_in``, so their gradients are summed over ``model``:
-        whole on every rank, as :meth:`reduce_grads` takes them."""
+        whole on every rank, as :meth:`reduce_grads` takes them; so do
+        the attention's leaves under ``"head_dim"`` (each rank computes
+        on its rows of T), unless Ulysses runs it."""
         self.chunked, self.seq_t = self.seq_splits(t), t
         self.activations = "sequence" if self.chunked else "whole"
         if not (self.chunked and torch.is_grad_enabled()):
             return params
+        rows = self.dense.get("attn") == "head_dim" and not self.ulysses_ok(
+            self.cfg, t)
+
+        def read_on_chunk(path):
+            parent, _, name = path.rpartition("/")
+            return name in _STREAM_LEAVES or (
+                rows and parent.rpartition("/")[2] == "attn")
         return unflatten(params, [
-            self.coll.replicated_in(x, "model")
-            if path.split("/")[-1] in _STREAM_LEAVES else x
+            self.coll.replicated_in(x, "model") if read_on_chunk(path) else x
             for path, x in leaves_with_paths(params)])
 
     def seq_len(self, x) -> int:
@@ -741,7 +790,8 @@ class MeshPar(Par):
         return self.dense.get(kind, "whole")
 
     def cache_split(self, kind: str) -> int:
-        return self.model_n if self.dense_split(kind) == "heads" else 1
+        return self.model_n if self.dense_split(kind) in ("heads",
+                                                          "head_dim") else 1
 
     def region_in(self, x):
         if self.chunked:
@@ -773,6 +823,9 @@ class MeshPar(Par):
 
     def gather_out(self, x, dim: int):
         return self.coll.gather_out(x, "model", dim)
+
+    def seq_gather(self, x):
+        return self.coll.all_gather(x, "model", 1) if self.chunked else x
 
     def channels_out(self, x):
         """Gathered whole over the channels, or under sequence

@@ -56,23 +56,28 @@ _CACHE_HEADS = {"k": ("attn", 2), "v": ("attn", 2), "ssm": ("mamba", 1),
                 "conv": ("mamba", 2), "wkv": ("rwkv", 1)}
 
 
-def cache_layout(mesh, cache_tree, cfg: ModelConfig) -> Any:
+def cache_layout(mesh, cache_tree, cfg: ModelConfig,
+                 attn_rule: str = "auto") -> Any:
     """The port's cache specs of ``cfg``'s whole caches ``cache_tree``:
     the batch dim (after the group dim of the ``grp`` caches) over the
     data axes, and where the layer runs split over ``model``
-    (:func:`~repro_torch.launch.sharding.dense_splits` says
-    ``"heads"``) the dim the reference's ``cache_specs`` puts on
-    ``model``: the kv heads of ``k`` / ``v``, Mamba2's ``ssm`` heads and
-    ``conv`` channels, RWKV6's ``wkv`` heads; the rest whole."""
+    (:func:`~repro_torch.launch.sharding.dense_splits` under
+    ``attn_rule`` says ``"heads"`` or ``"head_dim"``) the dim the
+    reference's ``cache_specs`` puts on ``model``: the kv heads of ``k``
+    / ``v`` (their head dim under ``"head_dim"``), Mamba2's ``ssm``
+    heads and ``conv`` channels, RWKV6's ``wkv`` heads; the rest
+    whole."""
     dp = dp_axes(mesh)
-    splits = dense_splits(mesh, cfg)
+    splits = dense_splits(mesh, cfg, attn_rule)
 
     def spec(path, t):
         lead = 1 if path.startswith("grp") else 0
         rule = [None] * t.ndim
         rule[lead] = dp
         kind, dim = _CACHE_HEADS.get(path.rpartition("/")[2], (None, 0))
-        if kind is not None and splits.get(kind) == "heads":
+        if kind is not None and splits.get(kind) == "head_dim":
+            rule[lead + 3] = "model"  # (B, S, Hkv, Dh): the head dim
+        elif kind is not None and splits.get(kind) == "heads":
             rule[lead + dim] = "model"
         return spec_for(mesh, t.shape, rule)
     return unflatten(cache_tree, [spec(p, t)
@@ -107,7 +112,8 @@ def input_specs(cfg: ModelConfig, mesh, kind: str, batch: int, seq: int,
         local_b = batch // axis_size(mesh, *dp_axes(mesh)) \
             if par.split(batch) else batch
         caches = _empty(init_cache(cfg, local_b, seq, "meta", par), device)
-        layout = cache_layout(mesh, init_cache(cfg, batch, seq, "meta"), cfg)
+        layout = cache_layout(mesh, init_cache(cfg, batch, seq, "meta"), cfg,
+                              par.attn_rule)
         caches = tree_map(lambda t, s: _wrap_local(t, mesh, s), caches,
                           layout)
         pos = torch.zeros((), dtype=torch.int64, device=device)

@@ -17,7 +17,10 @@ Two variants:
   two passes, dq per q-block and then dk / dv per kv-block over the
   ``min(window + bq, T)`` queries that can see it.
 
-Layouts: q (B,T,H,Dh), k/v (B,T,Hkv,Dh), GQA by H = Hkv*G.  Scores and
+Layouts: q (B,T,H,Dh), k/v (B,Tk,Hkv,Dh), GQA by H = Hkv*G.  Query row
+i is at position ``q_start + i`` for the masks and key j at j, so q may
+be a rank's rows of a longer sequence whose keys are whole (``q_start``
+0: q and k share T).  Scores and
 accumulators are fp32 (products of the inputs' values summed in fp32,
 the reference's ``preferred_element_type``).  ``T`` must be a multiple
 of the fitted block ``min(block_q, T)`` (and ``Tk`` of
@@ -80,7 +83,7 @@ def _delta(do, o, b, t, hkv, g, dh):
 
 # =========================================================== full/causal ====
 
-def _flash_fwd(q, k, v, causal, window, scale, block_q, block_k):
+def _flash_fwd(q, k, v, causal, window, scale, block_q, block_k, q_start):
     b, t, h, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -92,7 +95,7 @@ def _flash_fwd(q, k, v, causal, window, scale, block_q, block_k):
     lse = torch.empty((b, hkv, g, t), dtype=torch.float32, device=dev)
     for q0 in range(0, t, bq):
         q_i = qs[:, q0:q0 + bq]
-        qpos = torch.arange(q0, q0 + bq, device=dev)
+        qpos = torch.arange(q_start + q0, q_start + q0 + bq, device=dev)
         m = torch.full((b, hkv, g, bq, 1), NEG_INF, device=dev)
         l = torch.zeros((b, hkv, g, bq, 1), device=dev)
         acc = torch.zeros((b, hkv, g, bq, dh), device=dev)
@@ -115,7 +118,7 @@ def _flash_fwd(q, k, v, causal, window, scale, block_q, block_k):
 
 
 def _flash_bwd(q, k, v, o, lse, do, causal, window, scale, block_q,
-               block_k):
+               block_k, q_start):
     b, t, h, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -135,8 +138,8 @@ def _flash_bwd(q, k, v, o, lse, do, causal, window, scale, block_q,
         dv_j = torch.zeros((b, bk, hkv, dh), device=dev)
         for q0 in range(0, t, bq):
             q_i, do_i = qh[:, q0:q0 + bq], doh[:, q0:q0 + bq]
-            msk = _mask(torch.arange(q0, q0 + bq, device=dev), kpos, causal,
-                        window)
+            msk = _mask(torch.arange(q_start + q0, q_start + q0 + bq,
+                                     device=dev), kpos, causal, window)
             s = _scores(q_i, k_j) * sc
             p = torch.where(msk, torch.exp(s - lse[..., q0:q0 + bq, None]),
                             0.0)
@@ -153,26 +156,29 @@ def _flash_bwd(q, k, v, o, lse, do, causal, window, scale, block_q,
 
 class _FlashMHA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, block_q, block_k):
+    def forward(ctx, q, k, v, causal, window, scale, block_q, block_k,
+                q_start):
         o, lse = _flash_fwd(q, k, v, causal, window, scale, block_q,
-                            block_k)
+                            block_k, q_start)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, window, scale, block_q, block_k)
+        ctx.args = (causal, window, scale, block_q, block_k, q_start)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return _flash_bwd(q, k, v, o, lse, do, *ctx.args) + (None,) * 5
+        return _flash_bwd(q, k, v, o, lse, do, *ctx.args) + (None,) * 6
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None, block_q: int = 512,
-              block_k: int = 512) -> torch.Tensor:
+              block_k: int = 512, q_start: int = 0) -> torch.Tensor:
     """Blockwise attention with an O(T) backward; q (B,T,H,Dh), k/v
-    (B,Tk,Hkv,Dh) -> (B,T,H,Dh) in q's type."""
-    return _FlashMHA.apply(q, k, v, causal, window, scale, block_q, block_k)
+    (B,Tk,Hkv,Dh) -> (B,T,H,Dh) in q's type; query row i at position
+    ``q_start + i``."""
+    return _FlashMHA.apply(q, k, v, causal, window, scale, block_q, block_k,
+                           q_start)
 
 
 # ============================================================ local (SWA) ====
@@ -182,21 +188,26 @@ def _local_mask(qpos, kpos, window: int):
         qpos[:, None] - kpos[None, :] < window)
 
 
-def _local_fwd(q, k, v, window, scale, block_q):
+def _local_fwd(q, k, v, window, scale, block_q, q_start):
     b, t, h, dh = q.shape
-    hkv = k.shape[2]
+    tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     bq = _fit(t, block_q, "T")
-    ctx = min(window + bq, t)
+    _fit(tk, bq, "Tk")  # the backward's kv blocks
+    if q_start + t > tk:
+        raise ValueError(f"rows at {q_start}..{q_start + t} past the "
+                         f"{tk} keys")
+    ctx = min(window + bq, tk)
     sc = scale if scale is not None else dh ** -0.5
     qh = q.reshape(b, t, hkv, g, dh)
     dev = q.device
     o = torch.empty_like(q)
     lse = torch.empty((b, hkv, g, t), dtype=torch.float32, device=dev)
     for q0 in range(0, t, bq):
-        start = min(max(q0 + bq - ctx, 0), t - ctx)
+        p0 = q_start + q0  # the block's first position
+        start = min(max(p0 + bq - ctx, 0), tk - ctx)
         k_j, v_j = k[:, start:start + ctx], v[:, start:start + ctx]
-        msk = _local_mask(torch.arange(q0, q0 + bq, device=dev),
+        msk = _local_mask(torch.arange(p0, p0 + bq, device=dev),
                           torch.arange(start, start + ctx, device=dev),
                           window)
         s = torch.where(msk, _scores(qh[:, q0:q0 + bq], k_j) * sc, NEG_INF)
@@ -210,12 +221,12 @@ def _local_fwd(q, k, v, window, scale, block_q):
     return o, lse
 
 
-def _local_bwd(q, k, v, o, lse, do, window, scale, block_q):
+def _local_bwd(q, k, v, o, lse, do, window, scale, block_q, q_start):
     b, t, h, dh = q.shape
-    hkv = k.shape[2]
+    tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     bq = min(block_q, t)
-    ctx = min(window + bq, t)
+    ctx = min(window + bq, tk)
     sc = scale if scale is not None else dh ** -0.5
     dev = q.device
     qh = q.reshape(b, t, hkv, g, dh)
@@ -223,7 +234,8 @@ def _local_bwd(q, k, v, o, lse, do, window, scale, block_q):
     delta = _delta(do, o, b, t, hkv, g, dh)
 
     def recompute_p(q_i, k_j, lse_i, q0, k0, nq, nk):
-        msk = _local_mask(torch.arange(q0, q0 + nq, device=dev),
+        msk = _local_mask(torch.arange(q_start + q0, q_start + q0 + nq,
+                                       device=dev),
                           torch.arange(k0, k0 + nk, device=dev), window)
         s = _scores(q_i, k_j) * sc
         return torch.where(msk, torch.exp(s - lse_i[..., None]), 0.0)
@@ -231,7 +243,7 @@ def _local_bwd(q, k, v, o, lse, do, window, scale, block_q):
     # pass 1: dq per q-block (the forward's slices)
     dq = torch.empty((b, t, hkv, g, dh), device=dev)
     for q0 in range(0, t, bq):
-        start = min(max(q0 + bq - ctx, 0), t - ctx)
+        start = min(max(q_start + q0 + bq - ctx, 0), tk - ctx)
         q_i, do_i = qh[:, q0:q0 + bq], doh[:, q0:q0 + bq]
         k_j, v_j = k[:, start:start + ctx], v[:, start:start + ctx]
         p = recompute_p(q_i, k_j, lse[..., q0:q0 + bq], q0, start, bq, ctx)
@@ -242,10 +254,10 @@ def _local_bwd(q, k, v, o, lse, do, window, scale, block_q):
     # one contiguous slice of min(window + bkv, T) rows
     bkv = bq
     qctx = min(window + bkv, t)
-    dk = torch.empty((b, t, hkv, dh), device=dev)
-    dv = torch.empty((b, t, hkv, dh), device=dev)
-    for k0 in range(0, t, bkv):
-        qs = min(max(k0, 0), t - qctx)
+    dk = torch.empty((b, tk, hkv, dh), device=dev)
+    dv = torch.empty((b, tk, hkv, dh), device=dev)
+    for k0 in range(0, tk, bkv):
+        qs = min(max(k0 - q_start, 0), t - qctx)
         k_j, v_j = k[:, k0:k0 + bkv], v[:, k0:k0 + bkv]
         q_i, do_i = qh[:, qs:qs + qctx], doh[:, qs:qs + qctx]
         p = recompute_p(q_i, k_j, lse[..., qs:qs + qctx], qs, k0, qctx, bkv)
@@ -258,22 +270,23 @@ def _local_bwd(q, k, v, o, lse, do, window, scale, block_q):
 
 class _LocalMHA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, window, scale, block_q):
-        o, lse = _local_fwd(q, k, v, window, scale, block_q)
+    def forward(ctx, q, k, v, window, scale, block_q, q_start):
+        o, lse = _local_fwd(q, k, v, window, scale, block_q, q_start)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (window, scale, block_q)
+        ctx.args = (window, scale, block_q, q_start)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return _local_bwd(q, k, v, o, lse, do, *ctx.args) + (None,) * 3
+        return _local_bwd(q, k, v, o, lse, do, *ctx.args) + (None,) * 4
 
 
 def local_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: int, scale: Optional[float] = None,
-              block_q: int = 256) -> torch.Tensor:
+              block_q: int = 256, q_start: int = 0) -> torch.Tensor:
     """Causal sliding-window attention (a query sees the ``window`` keys
     up to itself) with an O(T * window) backward; q (B,T,H,Dh), k/v
-    (B,T,Hkv,Dh) -> (B,T,H,Dh) in q's type."""
-    return _LocalMHA.apply(q, k, v, window, scale, block_q)
+    (B,Tk,Hkv,Dh) with ``q_start + T <= Tk`` -> (B,T,H,Dh) in q's type;
+    query row i at position ``q_start + i``."""
+    return _LocalMHA.apply(q, k, v, window, scale, block_q, q_start)

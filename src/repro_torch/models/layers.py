@@ -119,7 +119,7 @@ def gated_mlp(x, p, act: str = "silu"):
 # -------------------------------------------------------------- attention ----
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=None,
-                     ring: bool = False, scale=None):
+                     ring: bool = False, scale=None, scores=None):
     """One-token attention against a cache (plain torch; the JAX
     package's ``decode_attention_jax``).
 
@@ -128,12 +128,18 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None,
     mask is then built on the device); the cache already holds the new
     token at its slot.  ``ring=True``
     means the cache is a rolling buffer of S slots, slot s holding
-    position ``pos - ((pos - s) mod S)``."""
+    position ``pos - ((pos - s) mod S)``.  ``scores``, if given, takes
+    the raw fp32 scores (B, Hkv, G, S) before the scale and the mask: a
+    rank holding a slice of the head dim passes the sum over ``model``
+    of its partial scores (and ``scale`` of the whole head dim)."""
     b, s, hkv, dh = k_cache.shape
     h = q.shape[2]
     scale = dh ** -0.5 if scale is None else scale
     qh = q.reshape(b, hkv, h // hkv, dh).float()
-    logits = torch.einsum("bhgd,bshd->bhgs", qh, k_cache.float()) * scale
+    logits = torch.einsum("bhgd,bshd->bhgs", qh, k_cache.float())
+    if scores is not None:
+        logits = scores(logits)
+    logits = logits * scale
     slots = torch.arange(s, device=q.device)
     slot_pos = pos - torch.remainder(pos - slots, s) if ring else slots
     mask = (slot_pos >= 0) & (slot_pos <= pos)

@@ -31,6 +31,7 @@ class Par:
     """The parallelism context's hooks, as the single-device no-op."""
 
     model_rank = 0  # this rank's index on the ``model`` axis
+    model_n = 1     # the ``model`` axis's ranks
 
     def constraint(self, x, kind: str):
         """Where the reference pins a layout: the identity."""
@@ -115,12 +116,15 @@ class Par:
         ``"mamba"``, ``"rwkv"`` or ``"vocab"``) run over ``model``:
         ``"heads"`` (on this rank's heads, hidden units or vocabulary
         rows), ``"q_heads_kv_whole"`` (attention: q heads split, k and v
-        whole) or ``"whole"``."""
+        whole), ``"head_dim"`` (attention: a decode step on this rank's
+        slice of the head dim, prefill and training on its rows of the
+        sequence) or ``"whole"``."""
         return "whole"
 
     def cache_split(self, kind: str) -> int:
         """Over how many ranks the decode cache of a layer ``kind``
-        (``"attn"``, ``"mamba"``, ``"rwkv"``) is split on its heads."""
+        (``"attn"``, ``"mamba"``, ``"rwkv"``) is split: on its heads, or
+        on the head dim where the attention is ``"head_dim"``."""
         return 1
 
     def region_in(self, x):
@@ -163,6 +167,12 @@ class Par:
     def gather_out(self, x, dim: int):
         """The ranks' chunks along ``dim`` gathered whole (backward: this
         rank's chunk)."""
+        return x
+
+    def seq_gather(self, x):
+        """This rank's chunk of the sequence (dim 1) gathered whole from
+        every rank's, where the stream is split (backward: the sum of
+        the ranks' gradients, this rank's chunk of it)."""
         return x
 
     def narrow(self, x, dim: int, start: int, length: int):

@@ -161,7 +161,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu",
     slots of a ring for ``L`` blocks; ``M`` blocks a :class:`MambaState`,
     ``R`` blocks an :class:`RWKVState`.  With a ``par`` whose layers run
     split over ``model``, this rank's block: the heads (and Mamba2's
-    conv channels) divided by :meth:`Par.cache_split`."""
+    conv channels) divided by :meth:`Par.cache_split`, or, where the
+    attention is ``"head_dim"``, the head dim of ``k`` / ``v`` (this
+    rank's contiguous slice of Dh, the reference's ``cache_specs``)."""
     par = par or DEFAULT_PAR
     return {"pro": [_position_cache(cfg, k, batch, max_len, (), device, par)
                     for k in cfg.prologue],
@@ -177,9 +179,12 @@ def _position_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
     if kind in ("A", "S", "L"):
         s = min(cfg.window, max_len) if kind == "L" else max_len
-        hkv = cfg.n_kv_heads // par.cache_split("attn")
-        return {"k": zeros(batch, s, hkv, cfg.head_dim),
-                "v": zeros(batch, s, hkv, cfg.head_dim)}
+        hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        if par.dense_split("attn") == "head_dim":
+            dh //= par.cache_split("attn")
+        else:
+            hkv //= par.cache_split("attn")
+        return {"k": zeros(batch, s, hkv, dh), "v": zeros(batch, s, hkv, dh)}
     if kind == "M":
         d_inner = 2 * cfg.d_model // par.cache_split("mamba")
         return MambaState(
@@ -215,22 +220,50 @@ def _apply_rope(cfg, q, k, positions, pos3):
 
 
 def _prefill_attention(q, k, v, cfg: ModelConfig, kind: str,
-                       pol: KernelPolicy):
+                       pol: KernelPolicy, q_start: int = 0):
     """Prefill / train attention over the policy's variant axis.  q/k/v
     are (B, T, H, Dh), as ``"flash_jax"`` takes them; the kernel and the
     dense reference speak (B, H, T, Dh), so they get transposed views (no
-    copy: the CUDA kernel takes strides)."""
+    copy: the CUDA kernel takes strides).  q's row i is at position
+    ``q_start + i`` (this rank's rows of a sequence whose k and v are
+    whole)."""
     window = cfg.window if kind == "L" and cfg.window is not None else None
     if pol.attention == "flash_jax":
         if window is not None:
-            return local_mha(q, k, v, window, None, min(pol.block_q, 256))
+            return local_mha(q, k, v, window, None, min(pol.block_q, 256),
+                             q_start)
         return flash_mha(q, k, v, cfg.causal, None, None, pol.block_q,
-                         pol.block_k)
+                         pol.block_k, q_start)
     fn = (ops.flash_attention if pol.attention == "flash_pallas"
           else ref.attention_ref)  # a validated policy: "reference"
     o = fn(*(a.transpose(1, 2) for a in (q, k, v)), causal=cfg.causal,
-           window=window)
+           window=window, q_start=q_start)
     return o.transpose(1, 2)
+
+
+def _write_slot(cache, k, v, pos, ring: bool):
+    """A decode step's k and v (B, 1, Hkv, Dh) into their cache slot
+    (``pos`` an int or a 0-d device tensor: then no sync)."""
+    s = cache["k"].shape[1]
+    slot = pos % s if ring else pos
+    if isinstance(slot, torch.Tensor):
+        cache["k"].index_copy_(1, slot.reshape(1), k)
+        cache["v"].index_copy_(1, slot.reshape(1), v)
+    else:
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+
+
+def _fill_cache(cache, k, v):
+    """A prefill's k and v (B, T, Hkv, Dh) into the cache: its first T
+    slots, or, in a ring smaller than the prompt, the last S rolled."""
+    s, t = cache["k"].shape[1], k.shape[1]
+    if s >= t:
+        cache["k"][:, :t] = k
+        cache["v"][:, :t] = v
+    else:
+        cache["k"].copy_(torch.roll(k[:, -s:], t % s, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -s:], t % s, dims=1))
 
 
 def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
@@ -253,12 +286,20 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
     ``"q_heads_kv_whole"`` ``wk`` and ``wv`` are whole: this rank's q
     heads fall in one kv group, and it projects only that group's k and
     v, or, with a cache (which stays whole), all of them into the cache
-    and attends to that group's."""
+    and attends to that group's.  Under ``"head_dim"`` a decode step
+    splits the head dim (:func:`_head_dim_decode`) and prefill and
+    training split the query rows (:func:`_head_dim_rows`)."""
     par = par or DEFAULT_PAR
     dh = cfg.head_dim
     if cache is None and par.ulysses_ok(cfg, par.seq_len(x)):
         return par.ulysses_attention(x, p, cfg, kind, positions)
     split = par.dense_split("attn")
+    if split == "head_dim" and cache is not None and par.seq_len(x) == 1:
+        return _head_dim_decode(x, p, cfg, kind, positions=positions,
+                                cache=cache, pos=pos, pos3=pos3, par=par)
+    if split == "head_dim":
+        return _head_dim_rows(x, p, cfg, kernels, kind, positions=positions,
+                              cache=cache, pos3=pos3, par=par)
     h = p["wq"].shape[-1] // dh
     wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
     group = None  # (first, count) of the kv heads this rank attends to
@@ -286,32 +327,91 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
         return a if group is None else a.narrow(2, *group)
 
     if cache is not None and t == 1:
-        s = cache["k"].shape[1]
         ring = kind == "L" and cfg.window is not None
-        slot = pos % s if ring else pos
-        if isinstance(slot, torch.Tensor):  # a device position: no sync
-            cache["k"].index_copy_(1, slot.reshape(1), k)
-            cache["v"].index_copy_(1, slot.reshape(1), v)
-        else:
-            cache["k"][:, slot] = k[:, 0]
-            cache["v"][:, slot] = v[:, 0]
+        _write_slot(cache, k, v, pos, ring)
         o = decode_attention(q, attended(cache["k"]), attended(cache["v"]),
                              pos, window=cfg.window if kind == "L" else None,
                              ring=ring)
     else:
         if cache is not None:  # prefill: populate the cache
-            s = cache["k"].shape[1]
-            if s >= t:
-                cache["k"][:, :t] = k
-                cache["v"][:, :t] = v
-            else:  # ring smaller than the prompt: the last s, rolled
-                cache["k"].copy_(torch.roll(k[:, -s:], t % s, dims=1))
-                cache["v"].copy_(torch.roll(v[:, -s:], t % s, dims=1))
+            _fill_cache(cache, k, v)
         o = _prefill_attention(q, attended(k), attended(v), cfg, kind,
                                kernels)
     o = par.constraint(o, "heads")
     y = linear(o.reshape(b, t, h * dh), p["wo"])
     return par.whole_out(y) if split == "whole" else par.region_out(y)
+
+
+def _dh_slice(a, par: Par):
+    """This rank's contiguous slice of the head dim (the last) of ``a``."""
+    piece = a.shape[-1] // par.model_n
+    return a.narrow(-1, par.model_rank * piece, piece)
+
+
+def _head_dim_rows(x, p, cfg: ModelConfig, kernels: KernelPolicy,
+                   kind: str, *, positions, cache, pos3, par: Par):
+    """Prefill and training under ``"head_dim"``: the attention's leaves
+    are whole (entering through ``replicated_in`` where the stream is
+    split, so their gradients are summed over ``model``), and each rank
+    computes every head on its own rows.  Where the stream is split
+    over T, the rows are this rank's chunk of it: q, k and v projected
+    and rotated there (at those rows' positions), k and v all-gathered
+    over T (backward: a reduce-scatter), attention of the rows against
+    the whole k and v from query position ``model_rank * T / n``, and
+    ``wo`` on the rows, whose output is the stream's chunk already.
+    Where it is whole, every rank runs the whole attention.  A prefill
+    writes this rank's slice of the head dim of the rotated k and v."""
+    dh, h, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    rows = par.seq_len(x) != x.shape[1]
+    b, m, _ = x.shape
+    q_start = par.model_rank * m if rows else 0
+    if rows:
+        positions = positions[:, q_start:q_start + m]
+        pos3 = None if pos3 is None else pos3[..., q_start:q_start + m]
+    q = linear(x, p["wq"], p.get("bq")).reshape(b, m, h, dh)
+    k = linear(x, p["wk"], p.get("bk")).reshape(b, m, hkv, dh)
+    v = linear(x, p["wv"], p.get("bv")).reshape(b, m, hkv, dh)
+    q, k = _apply_rope(cfg, q, k, positions, pos3)
+    if rows:  # one all-gather of k and v together
+        k, v = par.seq_gather(torch.cat([k, v], 2)).split(hkv, 2)
+    if cache is not None:
+        _fill_cache(cache, _dh_slice(k, par), _dh_slice(v, par))
+    o = _prefill_attention(q, k, v, cfg, kind, kernels, q_start)
+    return linear(o.reshape(b, m, h * dh), p["wo"])
+
+
+def _head_dim_decode(x, p, cfg: ModelConfig, kind: str, *, positions,
+                     cache, pos, pos3, par: Par):
+    """A decode step under ``"head_dim"`` (the reference's split): this
+    rank's stored columns of ``wq`` / ``wk`` / ``wv`` (and biases) give
+    its part of q, k and v, gathered whole over ``model`` in one
+    all-gather (RoPE pairs element d with d + Dh/2, so a slice of the
+    head dim cannot be rotated alone) and rotated; this rank's slice of
+    the head dim of k and v goes into its cache, the partial scores on
+    the slice are summed over ``model`` before the mask and the softmax
+    (scaled by the whole head dim), p.v runs on the slice, o is gathered
+    and this rank's column chunk meets its stored rows of ``wo``, the
+    partial sums leaving through ``region_out``."""
+    dh, h, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    n, r = par.model_n, par.model_rank
+    x = par.region_in(x)
+    b = x.shape[0]
+    cols = torch.cat([linear(x, p["wq"], p.get("bq")),
+                      linear(x, p["wk"], p.get("bk")),
+                      linear(x, p["wv"], p.get("bv"))], -1)
+    whole = par.gather_out(cols[:, :, None], 2)  # (b, 1, n, cols)
+    q, k, v = (a.reshape(b, 1, heads, dh) for a, heads in zip(
+        whole.split([h * dh // n, hkv * dh // n, hkv * dh // n], -1),
+        (h, hkv, hkv)))
+    q, k = _apply_rope(cfg, q, k, positions, pos3)
+    ring = kind == "L" and cfg.window is not None
+    _write_slot(cache, _dh_slice(k, par), _dh_slice(v, par), pos, ring)
+    o = decode_attention(_dh_slice(q, par), cache["k"], cache["v"], pos,
+                         window=cfg.window if kind == "L" else None,
+                         ring=ring, scale=dh ** -0.5, scores=par.model_sum)
+    o = par.gather_out(o, -1).reshape(b, 1, h * dh)
+    y = linear(o.narrow(-1, r * (h * dh // n), h * dh // n), p["wo"])
+    return par.region_out(y)
 
 
 def mlp_block(x, p, cfg: ModelConfig, kind: str, par: Optional[Par] = None):

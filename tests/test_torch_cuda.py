@@ -115,6 +115,18 @@ BF16_FLASH_CASES = [
     (1, 2, 1, 33, 33, True, 0, False),
     (1, 4, 2, 1537, 1537, True, 1024, True),
 ]
+# a query offset (q_start): a rank's rows of a longer sequence against the
+# whole k and v (b, hq, hkv, rows, s, d, causal, window, q_start,
+# (B,T,H,D) views): head dims 16, 80, 128 and 256, the last quarter of
+# four ranks' rows and ragged ones, windows off the tile grid
+OFFSET_FLASH_CASES = [
+    (1, 4, 2, 64, 256, 80, True, None, 192, False),
+    (1, 8, 4, 384, 1536, 256, True, 1024, 1152, True),
+    (2, 4, 4, 100, 400, 128, True, 30, 300, False),
+    (1, 4, 2, 33, 130, 16, True, None, 97, True),
+    (1, 2, 2, 77, 154, 80, False, None, 77, False),
+    (1, 4, 2, 130, 520, 256, True, 16, 260, True),
+]
 SCAN_CASES = [  # (b, t, h, n, m): tests/test_kernels.py
     (1, 64, 2, 8, 16),
     (2, 128, 4, 16, 16),
@@ -170,6 +182,14 @@ def cards(cuda):
     """The number of CUDA cards; skips with fewer than two."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
+    return torch.cuda.device_count()
+
+
+@pytest.fixture
+def four_cards(cuda):
+    """Skips with fewer than four CUDA cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
     return torch.cuda.device_count()
 
 
@@ -405,6 +425,43 @@ def test_flash_attention_fp32_kernel_at_every_head_dim(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,m,s,d,causal,window,q_start,model_layout",
+                         OFFSET_FLASH_CASES)
+def test_flash_attention_kernels_at_a_query_offset(
+        cuda, b, hq, hkv, m, s, d, causal, window, q_start, model_layout,
+        dtype):
+    """Both routes on ``m`` query rows at positions ``q_start ..`` against
+    ``s`` whole keys (the head-dim rule's prefill on one rank's rows),
+    against the plain version at the same offset: fp32 at 2e-5, bf16 at
+    3e-2 and within one bf16 rounding of the fp32 function."""
+    q, k, v = (torch.from_numpy(a).to(cuda, DTYPES[dtype])
+               for a in flash_inputs(b, hq, hkv, s, d))
+    if model_layout:  # (B,T,H,D) activations viewed as (B,H,T,D)
+        q, k, v = (a.transpose(1, 2).contiguous().transpose(1, 2)
+                   for a in (q, k, v))
+    q = q[:, :, q_start:q_start + m]
+    before = flash_mod.launches
+    got = flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window, q_start=q_start)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_start=q_start)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    got = got.float().cpu().numpy()
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got, want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    if dtype == "bfloat16":
+        want32 = ref.attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window,
+                                   q_start=q_start)
+        np.testing.assert_allclose(got, want32.cpu().numpy(),
+                                   rtol=2.0 ** -8, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_flash_attention_fp32_kernel_refuses_unaligned_tensors(cuda):
     """The fp32 kernel copies 16-byte chunks by cp.async: a t stride of 33
     floats, and a base pointer 4 bytes off, raise; a bf16 launch does not
@@ -515,6 +572,48 @@ def test_split_train_step_over_nccl_matches_unmeshed(cards, tmp_path):
             np.testing.assert_allclose(r["meshed"][key], want, rtol=1e-4,
                                        atol=1e-6, err_msg=key)
     assert ranks[0]["meshed"] == ranks[1]["meshed"]
+
+
+@pytest.mark.cuda
+def test_head_dim_attention_over_four_nccl_ranks(four_cards, tmp_path):
+    """Four ranks of an NCCL world, each on its card: gemma3-4b's smoke
+    config on a (1, 4) mesh under the default attention rule, where its 2
+    kv and 4 q heads do not divide 4 and its head dim of 16 does
+    (``"head_dim"``): a session's prefill of 32 tokens, each rank's 8
+    rows through the flash kernel at its query offset (launches counted),
+    8 greedy decode steps replayed as a CUDA graph with the head-dim
+    collectives captured, each rank's k / v caches (b, S, Hkv, Dh / 4);
+    the unmeshed session's tokens and logits at 1e-5; one train step
+    against the unmeshed one, loss and grad norm at rtol 1e-4."""
+    import torch_launch_jobs as jobs
+    from repro_torch.kernels import build
+    from torch_worlds import run_world
+    build.kernel_library()  # built once, before the ranks load it
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, 256, (2, 32)).astype(np.int32)
+    batch = {k: rng.integers(0, 256, (2, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    ranks = run_world(4, jobs.head_dim_card,
+                      ("gemma3-4b", (1, 4), 0, prompts, 8, batch), tmp_path,
+                      backend="nccl")
+    for r in ranks:
+        assert r["dense"]["attn"] == "head_dim"
+        assert r["meshed"]["launches"] > 0 and r["unmeshed"]["launches"] > 0
+        assert r["meshed"]["decode"] == "cuda_graph"
+        assert np.array_equal(r["meshed"]["tokens"], r["unmeshed"]["tokens"])
+        np.testing.assert_allclose(r["meshed"]["logits"],
+                                   r["unmeshed"]["logits"], rtol=1e-5,
+                                   atol=1e-5)
+        for path, shape in r["cache_shapes"].items():
+            if path.rpartition("/")[2] in ("k", "v"):
+                assert shape[-2:] == (2, 4), (path, shape)
+        train = r["train"]
+        assert train["describe"]["dense"]["attn"] == "head_dim"
+        for key, want in train["unmeshed"].items():
+            np.testing.assert_allclose(train["meshed"][key], want, rtol=1e-4,
+                                       atol=1e-6, err_msg=key)
+    assert all(np.array_equal(r["meshed"]["logits"],
+                              ranks[0]["meshed"]["logits"]) for r in ranks)
 
 
 @pytest.mark.cuda

@@ -7,9 +7,13 @@ unmeshed paths and to the JAX package.
   (tied embedding, windowed and global attention), qwen1.5-110b (qkv
   bias), zamba2-2.7b (Mamba2 and the shared block), rwkv6-7b and
   deepseek-moe-16b (dense attention beside the TP-MoE), and for
-  h2o-danube-3-4b at (1, 4), whose 2 kv heads do not divide 4 (every
-  smoke config's attention takes that rule at (1, 4): q heads split, k
-  and v whole): at rtol 1e-5 / atol 1e-5 to the port's unmeshed forward
+  h2o-danube-3-4b at (1, 4), whose 2 kv heads do not divide 4: every
+  case here runs under ``attn_rule="qshard_kvrep"``, so every smoke
+  config's attention takes the reference's second rule at (1, 4): q
+  heads split, k and v whole (under the default ``"auto"`` it takes the
+  third, the head dim: ``tests/test_torch_attn_rule.py``), and the
+  (1, 2) and (2, 2) meshes take the first under either rule: at rtol
+  1e-5 / atol 1e-5 to the port's unmeshed forward
   and at 1e-4 (max abs) to JAX's unmeshed ``forward`` on the same weights
   (``from_jax_params``), as
   ``test_parallel_variant_matches_the_unmeshed_forward`` holds them, with
@@ -46,8 +50,9 @@ unmeshed paths and to the JAX package.
   (``tests/test_torch_launch_train.py``'s bars), and the gradients of the
   replicated leaves equal on every rank.
 * On duck-typed meshes, no process group: the split each arch takes at
-  full width, and the port's cache layout against the reference's
-  ``cache_specs`` (the same dims on ``model`` wherever the port splits).
+  full width under either attention rule, and the port's cache layout
+  against the reference's ``cache_specs`` (the same dims on ``model``
+  wherever the port splits, the head dim of ``k`` / ``v`` included).
 
 Worlds of 2 and 4 ranks are spawned once each (``tests/torch_worlds.py``).
 """
@@ -86,6 +91,9 @@ from test_torch_train_lm import (LR, TOTAL, WARMUP, _batch, _close, _flat,
                                  _torch)
 from torch_worlds import run_world
 
+# the attention rule of every meshed case here (the q-heads rule where it
+# applies; see the docstring)
+RULE = "qshard_kvrep"
 FWD_ARCHS = ("gemma3-4b", "qwen1.5-110b", "zamba2-2.7b", "rwkv6-7b",
              "deepseek-moe-16b")
 FWD_CASES = [(a, m) for m in ((1, 2), (2, 2), (1, 4)) for a in FWD_ARCHS] + [
@@ -195,7 +203,8 @@ def _predicted(cfg, splits, n, t):
     """The forward's collectives past the parameters' gathers, by kind,
     counted from the layer pattern: over T when ``t`` divides ``n``
     (into a split region an all-gather, out of it a reduce-scatter; a
-    layer that runs whole gathers T), else the whole-T regions' all-reduce
+    layer that runs whole gathers T; head-dim attention, on this rank's
+    rows, gathers its k and v over T), else the whole-T regions' all-reduce
     out; plus Mamba2's re-cut of its halves and B/C/dt sum, RWKV6's
     channel exchange, and the vocabulary's logits gathered whole."""
     chunk = t % n == 0
@@ -214,7 +223,10 @@ def _predicted(cfg, splits, n, t):
         add("reduce-scatter" if chunk else "all-reduce")
     for kind in cfg.prologue + cfg.pattern * cfg.n_groups:
         if kind in "ALS":
-            region() if splits["attn"] != "whole" else whole()
+            if splits["attn"] in ("whole", "head_dim"):
+                whole()  # the stream's, or k and v together, over T
+            else:
+                region()
             if cfg.n_experts and kind != "S":
                 region()  # the tensor-parallel MoE
             else:
@@ -262,31 +274,32 @@ def _tasks(n):
             params, batch = _inputs(arch)
             tasks.append((f"fwd {arch} {shape}", "variant", dict(
                 arch=arch, over={}, shape=shape, moe="tp", ulysses=False,
-                params=params, batch=batch)))
+                params=params, batch=batch, attn_rule=RULE)))
     for arch, shape, t in FALLBACK_CASES:
         if shape[0] * shape[1] == n:
             params, batch = _inputs(arch)
             tasks.append((f"fwd {arch} {shape} T{t}", "variant", dict(
                 arch=arch, over={}, shape=shape, moe="tp", ulysses=False,
                 params=params, batch={k: v[:, :t] for k, v in
-                                      batch.items()})))
+                                      batch.items()}, attn_rule=RULE)))
     for arch, shape in LOSS_CASES:
         if shape[0] * shape[1] == n:
             tasks.append((f"loss {arch} {shape}", "vocab_loss", dict(
                 arch=arch, shape=shape, params=_inputs(arch)[0],
-                batch=_loss_batch(arch))))
+                batch=_loss_batch(arch), attn_rule=RULE)))
     for arch, shape in DECODE_CASES:
         if shape[0] * shape[1] == n:
             params, batch = _inputs(arch)
             tasks.append((f"dec {arch} {shape}", "tp_decode", dict(
                 arch=arch, shape=shape, params=params,
-                prompts=batch["tokens"][:2, :12], new=DECODE_NEW)))
+                prompts=batch["tokens"][:2, :12], new=DECODE_NEW,
+                attn_rule=RULE)))
     for arch, shape in TRAIN_CASES:
         if shape[0] * shape[1] == n:
             _, _, state, batches = _train_inputs(arch)
             tasks.append((f"train {arch} {shape}", "train", dict(
                 arch=arch, over={}, shape=shape, state=state,
-                batches=batches, lr=(LR, WARMUP, TOTAL))))
+                batches=batches, lr=(LR, WARMUP, TOTAL), attn_rule=RULE)))
     return tasks
 
 
@@ -316,7 +329,7 @@ def _case_id(case):
 def test_split_forward_matches_unmeshed_and_jax(case, request):
     arch, shape = case
     want = _jax_logits(arch)
-    splits = dense_splits(_duck(shape), ARCHS[arch].smoke())
+    splits = dense_splits(_duck(shape), ARCHS[arch].smoke(), RULE)
     ranks = _ranks(request, shape)
     for rank, r in enumerate(ranks):
         got = r[f"fwd {arch} {shape}"]
@@ -358,7 +371,7 @@ def test_split_forward_keeps_the_stream_whole_where_t_does_not_divide(
         case, request):
     arch, shape, t = case
     want = _jax_logits(arch, t)
-    splits = dense_splits(_duck(shape), ARCHS[arch].smoke())
+    splits = dense_splits(_duck(shape), ARCHS[arch].smoke(), RULE)
     ranks = _ranks(request, shape)
     for rank, r in enumerate(ranks):
         got = r[f"fwd {arch} {shape} T{t}"]
@@ -416,7 +429,7 @@ def test_dense_blocks_are_this_ranks_over_model(case, request):
     arch, shape = case
     cfg = ARCHS[arch].smoke()
     mesh = _duck(shape)
-    splits = dense_splits(mesh, cfg)
+    splits = dense_splits(mesh, cfg, RULE)
     params = init_params(cfg, device="meta")
     specs = {p: s for (p, _), s in spec_leaves(params,
                                                 param_specs(mesh, params))}
@@ -456,7 +469,7 @@ def test_split_decode_gives_the_unmeshed_tokens(case, request):
         init_cache(cfg, b, 32, "meta"))}
     for r in _ranks(request, shape):
         got = r[f"dec {arch} {shape}"]
-        assert got["dense"] == dense_splits(mesh, cfg)
+        assert got["dense"] == dense_splits(mesh, cfg, RULE)
         assert got["meshed"]["tokens"].shape == (DECODE_NEW + 1, b)
         assert np.array_equal(got["meshed"]["tokens"],
                               got["unmeshed"]["tokens"])
@@ -535,13 +548,16 @@ def test_split_train_step_matches_unmeshed_and_jax(case, request):
     # 8 kv heads divide 4: every dense layer split (the four-card run)
     ("qwen1.5-110b", (1, 4), {"attn": "heads", "mlp": "heads",
                               "vocab": "heads"}),
-    # 8 kv heads, 16 ranks: 4 q heads a rank in one group of 8
-    ("qwen1.5-110b", (16, 16), {"attn": "q_heads_kv_whole",
+    # 8 kv heads, 16 ranks, under "qshard_kvrep": 4 q heads a rank in one
+    # group of 8
+    ("qwen1.5-110b", (16, 16), {"attn_rule": "qshard_kvrep",
+                                "attn": "q_heads_kv_whole",
                                 "mlp": "heads", "vocab": "heads"}),
-    ("grok-1-314b", (16, 16), {"attn": "q_heads_kv_whole",
+    ("grok-1-314b", (16, 16), {"attn_rule": "qshard_kvrep",
+                               "attn": "q_heads_kv_whole",
                                "vocab": "heads"}),
-    # 8 q heads do not divide 16: the attention whole
-    ("gemma3-4b", (16, 16), {"attn": "whole", "mlp": "heads",
+    # 4 kv and 8 q heads do not divide 16, the head dim of 256 does
+    ("gemma3-4b", (16, 16), {"attn": "head_dim", "mlp": "heads",
                              "vocab": "heads"}),
     # a vocabulary of 504 does not divide 16
     ("hubert-xlarge", (16, 16), {"attn": "heads", "mlp": "heads",
@@ -552,12 +568,27 @@ def test_split_train_step_matches_unmeshed_and_jax(case, request):
     # 3 ranks: 4096 / 64 = 64 RWKV heads do not divide 3
     ("rwkv6-7b", (1, 3), {"rwkv": "whole", "vocab": "whole"}),
     ("deepseek-moe-16b", (1, 1), {"attn": "heads", "vocab": "heads"}),
+    # under the default rule the head dim of 128 divides 16
+    ("qwen1.5-110b", (16, 16), {"attn": "head_dim", "mlp": "heads",
+                                "vocab": "heads"}),
+    ("grok-1-314b", (16, 16), {"attn": "head_dim", "vocab": "heads"}),
+    # 120 does not divide 16: whole, or the q heads under "qshard_kvrep"
+    ("h2o-danube-3-4b", (16, 16), {"attn": "whole", "mlp": "heads",
+                                   "vocab": "heads"}),
+    ("h2o-danube-3-4b", (16, 16), {"attn_rule": "qshard_kvrep",
+                                   "attn": "q_heads_kv_whole",
+                                   "mlp": "heads", "vocab": "heads"}),
 ])
 def test_dense_split_rules(arch, shape, want):
-    assert dense_splits(_duck(shape), ARCHS[arch]) == want
+    """``want`` names the attention rule under ``"attn_rule"`` where it
+    is not the default."""
+    want = dict(want)
+    rule = want.pop("attn_rule", "auto")
+    assert dense_splits(_duck(shape), ARCHS[arch], rule) == want
     # MeshPar reads a mesh through the same functions
-    par = MeshPar(_duck(shape), ARCHS[arch])
+    par = MeshPar(_duck(shape), ARCHS[arch], attn_rule=rule)
     assert par.describe()["dense"] == want
+    assert par.describe()["attn_rule"] == rule
     assert {k: par.dense_split(k) for k in want} == want
 
 
@@ -588,5 +619,5 @@ def test_cache_layout_follows_the_reference_where_it_splits(arch, shape):
             if spec[dim] == "model":
                 assert jspec[dim] == "model", (path, spec, jspec)
             elif jspec[dim] == "model" and kind is not None \
-                    and splits.get(kind) == "heads":
+                    and splits.get(kind) in ("heads", "head_dim"):
                 raise AssertionError(f"{path}: {spec} vs {jspec}")

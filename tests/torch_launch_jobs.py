@@ -97,7 +97,8 @@ class _Log:
         self._restore()
 
 
-def variant(rank, arch, over, shape, moe, ulysses, params, batch):
+def variant(rank, arch, over, shape, moe, ulysses, params, batch,
+            attn_rule="auto"):
     """The meshed forward's whole logits, the unmeshed forward's, the
     collectives the meshed one issued (all, and those past the
     parameters' gathers as ``(kind, shape)``), the residual stream's
@@ -108,7 +109,8 @@ def variant(rank, arch, over, shape, moe, ulysses, params, batch):
     from repro_torch.models import lm
     cfg = _cfg(arch, over)
     p = lm.from_jax_params(cfg, params)
-    par = MeshPar(mesh(shape), cfg, moe=moe, ulysses=ulysses)
+    par = MeshPar(mesh(shape), cfg, moe=moe, ulysses=ulysses,
+                  attn_rule=attn_rule)
     placed = par.place_params(p)
     b = _t(batch)
     n, t = next(iter(b.values())).shape[:2]
@@ -125,7 +127,7 @@ def variant(rank, arch, over, shape, moe, ulysses, params, batch):
             "dense": par.describe()["dense"], "describe": par.describe()}
 
 
-def vocab_loss(rank, arch, shape, params, batch):
+def vocab_loss(rank, arch, shape, params, batch, attn_rule="auto"):
     """``loss_fn`` through the meshed forward and the unmeshed one on
     the same weights: the loss and its parts, the whole gradients
     (:func:`_meshed_grads`), the collectives of the meshed loss and its
@@ -135,7 +137,7 @@ def vocab_loss(rank, arch, shape, params, batch):
     from repro_torch.models import lm
     cfg = _cfg(arch, {})
     p = lm.from_jax_params(cfg, params)
-    par = MeshPar(mesh(shape), cfg)
+    par = MeshPar(mesh(shape), cfg, attn_rule=attn_rule)
     placed = par.place_params(p)
     b = _t(batch)
     local = par.local_params(placed, next(iter(b.values())).shape[1])
@@ -156,11 +158,12 @@ def vocab_loss(rank, arch, shape, params, batch):
             "describe": par.describe()}
 
 
-def tp_decode(rank, arch, shape, params, prompts, new):
+def tp_decode(rank, arch, shape, params, prompts, new, attn_rule="auto"):
     """The greedy loop of a session on ``shape`` and of the unmeshed one
     on the same weights: a prefill then ``new`` decode steps, each
     step's logits and tokens, and this rank's cache shapes after the
-    prefill; and the meshed session's ``describe()["dense"]``."""
+    prefill; the meshed session's ``describe()["dense"]`` and the
+    collectives of its last decode step as ``(kind, shape)``."""
     from repro_torch.core.tree import leaves_with_paths
     from repro_torch.engine import LMConfig, LMSession, SessionConfig
     from repro_torch.models import lm
@@ -171,19 +174,28 @@ def tp_decode(rank, arch, shape, params, prompts, new):
     for name, m in (("unmeshed", None), ("meshed", mesh(shape))):
         sess = LMSession(config=SessionConfig(backend="cuda-lm",
                                               device="cpu", lm=lmc),
-                         params=p, mesh=m)
+                         params=p, mesh=m, attn_rule=attn_rule)
         logits, handle = sess.prefill(prompts)
         shapes = {k: tuple(v.shape)
                   for k, v in leaves_with_paths(handle.caches)}
         steps = [logits]
-        for _ in range(new):
+        for i in range(new):
             tok = np.argmax(steps[-1], axis=-1).astype(np.int32)
-            steps.append(sess.decode(handle, tok))
+            if m is not None and i == new - 1:
+                with _Log(sess.backend.par) as log:
+                    steps.append(sess.decode(handle, tok))
+                out["decode_collectives"] = log.collectives
+            else:
+                steps.append(sess.decode(handle, tok))
         out[name] = {"logits": np.stack(steps),
                      "tokens": np.argmax(np.stack(steps), -1),
                      "cache_shapes": shapes}
         if m is not None:
-            out["dense"] = sess.backend.par.describe()["dense"]
+            be = sess.backend
+            out["dense"] = be.par.describe()["dense"]
+            out["decode_shapes"] = {
+                k: tuple(v.shape) for k, v in leaves_with_paths(
+                    be.par.local_params(be.params, 1, cached=True))}
     return out
 
 
@@ -256,10 +268,58 @@ def tp_card_train(rank, arch, shape, seed, batch):
     return out
 
 
-def _meshed_grads(par, cfg, placed, b):
+def head_dim_card(rank, arch, shape, seed, prompts, new, batch):
+    """On this rank's card (an NCCL world): ``arch``'s smoke config on
+    ``shape`` under the default attention rule and unmeshed, from the
+    same seeded weights: a ``"cuda-lm"`` session's prefill (the flash
+    kernel's launches in it) and ``new`` greedy decode steps (replayed as
+    a CUDA graph), their logits and tokens, the decode's mode, this
+    rank's cache shapes, ``describe()["dense"]``; and one train step
+    each (:func:`tp_card_train`)."""
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.engine import LMConfig, LMSession, SessionConfig
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.stack import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _cfg(arch, {})
+    host = init_params(cfg, torch.Generator().manual_seed(seed))
+    lmc = LMConfig(arch=arch, max_context=64, decode_batch=len(prompts))
+    out = {}
+    for name, m in (("unmeshed", None),
+                    ("meshed", make_mesh(shape, device_type="cuda"))):
+        sess = LMSession(config=SessionConfig(
+            backend="cuda-lm", device=str(dev), lm=lmc),
+            params=tree_map(lambda t: t.to(dev, copy=True), host), mesh=m)
+        before = flash_mod.launches
+        logits, handle = sess.prefill(prompts)
+        torch.cuda.synchronize()
+        launches = flash_mod.launches - before
+        steps = [logits]
+        for _ in range(new):
+            tok = np.argmax(steps[-1], axis=-1).astype(np.int32)
+            steps.append(sess.decode(handle, tok))
+        out[name] = {"logits": np.stack(steps),
+                     "tokens": np.argmax(np.stack(steps), -1),
+                     "launches": launches,
+                     "decode": sess.backend.describe()["decode"]}
+        if m is not None:
+            out["dense"] = sess.backend.par.describe()["dense"]
+            out["cache_shapes"] = {k: tuple(v.shape) for k, v in
+                                   leaves_with_paths(handle.caches)}
+        del sess, handle
+    out["train"] = tp_card_train(rank, arch, shape, seed, batch)
+    return out
+
+
+def _meshed_grads(par, cfg, placed, b, raw=None):
     """The gradients the meshed train step takes (the mean of its
     ``cfg.grad_accum`` microbatches', reduced by
-    :meth:`MeshPar.reduce_grads`), each leaf's whole value."""
+    :meth:`MeshPar.reduce_grads`), each leaf's whole value; ``raw``, a
+    dict, receives this rank's gradients before the reduction (of
+    :meth:`MeshPar.local_params`' tensors) as numpy."""
     from repro_torch.core.tree import leaves, unflatten
     from repro_torch.models import lm
     t = next(iter(b.values())).shape[1]
@@ -271,6 +331,8 @@ def _meshed_grads(par, cfg, placed, b):
                              par.local_batch(micro), par=par)
         g = [x.float() for x in torch.autograd.grad(loss, live)]
         gsum = g if gsum is None else [a + c for a, c in zip(gsum, g)]
+    if raw is not None:
+        raw.update(_np_flat(unflatten(whole, [x / k for x in gsum])))
     g = par.reduce_grads(unflatten(whole, [x / k for x in gsum]), placed)
     return par.wrap_like(g, placed)
 
@@ -293,7 +355,7 @@ def region_grads(rank, arch, over, shape, moe, ulysses, params, batch):
             "unmeshed": _np_flat(g)}
 
 
-def train(rank, arch, over, shape, state, batches, lr):
+def train(rank, arch, over, shape, state, batches, lr, attn_rule="auto"):
     """Steps of the meshed train step from the carried JAX train state:
     after each, the summed gradients, the metrics, and the whole
     parameters and moments."""
@@ -301,7 +363,7 @@ def train(rank, arch, over, shape, state, batches, lr):
     from repro_torch.models import lm
     from repro_torch.optim import AdamW, warmup_cosine
     cfg = _cfg(arch, over)
-    par = MeshPar(mesh(shape), cfg)
+    par = MeshPar(mesh(shape), cfg, attn_rule=attn_rule)
     params, opt_state, step = lm.from_jax_train_state(cfg, state)
     opt = AdamW(learning_rate=warmup_cosine(*lr))
     placed = par.place_params(params)
@@ -311,11 +373,15 @@ def train(rank, arch, over, shape, state, batches, lr):
     out = []
     for nb in batches:
         b = _t(nb)
-        # the gradients the step sums, for the parity marks
-        g = _meshed_grads(par, cfg, placed, b)
+        # the gradients the step sums, for the parity marks, and this
+        # rank's before their reduction, with the collectives they took
+        raw = {}
+        with _Log(par) as log:
+            g = _meshed_grads(par, cfg, placed, b, raw)
         (placed, opt_state, step), m = train_step(
             (placed, opt_state, step), b)
-        out.append({"grads": _np_flat(g),
+        out.append({"grads": _np_flat(g), "raw_grads": raw,
+                    "collectives": log.collectives,
                     "metrics": {k: float(v) for k, v in m.items()},
                     "params": _np_flat(placed),
                     "mu": _np_flat(opt_state.mu),
