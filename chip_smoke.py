@@ -66,7 +66,26 @@ tuned arch); any failure propagates and the script exits non-zero:
    ``"torch"`` in turns, through a replayed CUDA graph between CUDA
    events and as eager calls, the card's busy share over int8 forwards,
    and int8 batch-1 latency;
-9. lm_kernels — flash attention and the linear scan against their plain
+9. cgen      — the paper's own deployment, the generated ANSI C compiled
+   with the host's ``cc`` (``InferenceSession(backend="c")``), beside
+   the card: the host's CPU model, core count and ``cc --version`` once,
+   next to the card's name and power limit; per net (ball, pedestrian,
+   robot, residual; seed 0 weights; camera frames, 64 for the robot and
+   8 for the others) an fp32 C session at ``runtime.best_isa()``
+   (unroll ``"auto"``, fusion auto, one stage, no autotune) held to the
+   ``"cuda"`` session of phase 5 at rtol 1e-3 / atol 1e-5, and an int8 C
+   session at ``supported_int8_simds()[0]`` held to the int8 ``"torch"``
+   session on the card built from the same quantized graph (bit for bit
+   on the robot, rtol 1e-5 / atol 1e-6 and the same argmax on the
+   Softmax nets); batch-1 ``session.benchmark()`` of C fp32, C int8 and
+   ``"cuda"``, with the requested and resolved simd, the C source bytes
+   and the arena bytes; the C sessions' runs launch none of the four
+   kernels (counted from 0 around them), the ``"cuda"`` sessions' conv2d
+   and maxpool2d launches go into the kernels line; then 256 robot
+   frames through ``InferenceServer(workers=2, max_batch=32)`` on
+   ``"c"``, each equal to ``session.predict`` bit for bit, with QPS and
+   p50 / p99.  Each C build is one ``cc -O3``, all started together;
+10. lm_kernels — flash attention and the linear scan against their plain
    versions on the card: the JAX suite's cases (flash fp32 2e-5 and
    bf16 3e-2; scan fp32 1e-4 and bf16 5e-2), the archs' head dims (80
    included, with one hubert-xlarge layer at full width), the scan at
@@ -87,7 +106,7 @@ tuned arch); any failure propagates and the script exits non-zero:
    contribution), and one h2o-danube-3-4b layer in fp32 with its head
    dim padded 120 -> 128 by ``pad_head_dim``, equal to the unpadded
    layer through the kernel policy at rtol / atol 2e-5;
-10. lm_time   — per LM kernel at the main path's shapes (batch 4, 1536
+11. lm_time   — per LM kernel at the main path's shapes (batch 4, 1536
    tokens; flash at the four attention shapes above, rwkv6-7b's scan):
    the kernel, its plain version and the library call where one exists,
    through a replayed CUDA graph; bytes, operations and the bound; flash
@@ -95,7 +114,7 @@ tuned arch); any failure propagates and the script exits non-zero:
    route, split TF32 on the tensor cores, which lm_main's fp32 control
    runs), against its plain version at 2e-5 and SDPA in fp32 at 1e-4,
    with the device kernels SDPA runs, by name;
-11. lm_main  — per arch (gemma3-4b, rwkv6-7b, deepseek-moe-16b,
+12. lm_main  — per arch (gemma3-4b, rwkv6-7b, deepseek-moe-16b,
    zamba2-2.7b) at full published width in bf16 with random weights
    from seed 0: ``LMSession(backend="cuda-lm")`` with the kernel policy
    and with the plain policy on 4 prompts of 1536 tokens,
@@ -126,39 +145,39 @@ tuned arch); any failure propagates and the script exits non-zero:
    replay), the steady step's wall ms and tokens/s, the replay's device
    ms between CUDA events beside its bound (the weights' and caches'
    bytes over 3.35 TB/s) and the oracle's decode tokens/s;
-12. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``
+13. lm_serve — per arch, 5 requests through ``LMTokenServer(workers=1)``
    (the worker thread captures each handle's graph): each result equals
    ``session.generate`` on the same prompts;
-13. lm_tune  — gemma3-4b and rwkv6-7b (after their ``lm_serve``, on the
+14. lm_tune  — gemma3-4b and rwkv6-7b (after their ``lm_serve``, on the
    same weights): ``LMSession(autotune=True)`` at full width in bf16
    into a fresh directory, as the session tunes (batch 4, prompt 16,
    the best of 3 a candidate): the winner, its prefill µs, the tuning's
    seconds and kernel launches; a second session reads the record
    (``tuned_from_cache``) and launches nothing; a session pinned to the
    winner gives the tuned session's tokens;
-14. lm_decode_graph — every decoding arch's ``.smoke()`` config in fp32
+15. lm_decode_graph — every decoding arch's ``.smoke()`` config in fp32
    at batch 2 (prompts of 12, past the smoke window of 8), and
    deepseek-moe-16b's at capacity factor 1.25 and batch 4 (1 slot an
    expert: tokens drop in decode): the graphed decode's tokens equal
    the eager oracle's; two handles of one batch size decoded in turns,
    each equal to its own run alone;
-15. examples — ``examples/serve_lm_torch.py`` and
+16. examples — ``examples/serve_lm_torch.py`` and
    ``examples/serve_cnn_torch.py``, each a process of its own on the
    card: exit 0 and their closing OK lines; the CNN example's conv2d and
    maxpool2d launches;
-16. train_grad — the CUDA kernel wrappers refuse an input that requires
+17. train_grad — the CUDA kernel wrappers refuse an input that requires
    grad under grad mode (their kernels have no backward), and
    ``flash_mha`` / ``local_mha``, the training path's attention with its
    hand-written backward, give on the card the CPU's outputs and
    dq/dk/dv (``tests/test_attention_vjp.py``'s cases plus head dims 80
    and 256) at rtol 1e-4 / atol 1e-5;
-17. train_ball — ``trained_ball_classifier(150, seed=0)`` on the card:
+18. train_ball — ``trained_ball_classifier(150, seed=0)`` on the card:
    its parameters after 5 steps equal the CPU's (rtol 1e-4 / atol 1e-5),
    held-out accuracy at least 0.97, seconds per step, no kernel launched
    while training; the trained net served through ``"cuda"`` (conv2d
    and maxpool2d, launches counted) against ``"torch"`` at rtol 1e-4 /
    atol 1e-5 on 2,000 frames; its int8 session at least float - 0.02;
-18. train_lm — lm-100m (the JAX launch script's model: 12 layers, d_model 768,
+19. train_lm — lm-100m (the JAX launch script's model: 12 layers, d_model 768,
    fp32) at batch 8 x 256: its first 3 train steps on the card against
    the CPU's from the same weights (loss and grad norm at rtol 1e-4);
    200 steps through ``repro_torch.launch.train.main`` (checkpoints every
@@ -168,13 +187,13 @@ tuned arch); any failure propagates and the script exits non-zero:
    over 10 profiled steps; then preempted at step 4 of 6 (batch 2 x 32,
    checkpoints every 2) and resumed, every array of the final checkpoint
    against a straight 6-step run at rtol 1e-5 / atol 1e-6;
-19. train_smoke — 2 train steps of the gemma3-4b, rwkv6-7b,
+20. train_smoke — 2 train steps of the gemma3-4b, rwkv6-7b,
    qwen2-vl-72b, deepseek-moe-16b and zamba2-2.7b ``.smoke()`` configs
    with ``remat="full"`` (qwen2-vl with ``grad_accum=2``), card against
    CPU: loss and grad norm at rtol 1e-4,
    parameters as ``repro_torch.optim.parity`` holds them (rtol 1e-4 /
    atol 1e-5 wherever the two devices' gradients agree to 10%);
-20. launch   — the launch over ``torch.distributed`` on one rank: the
+21. launch   — the launch over ``torch.distributed`` on one rank: the
    one-rank NCCL group a ``mesh_shape=(1, 1)`` session starts (a
    ``FileStore`` in a temporary directory, no network); deepseek-moe-16b
    at full width in bf16 (during its lm phases, on the same weights,
@@ -198,10 +217,11 @@ tuned arch); any failure propagates and the script exits non-zero:
    production 16 x 16 mesh, run after every timed phase in a process of
    its own with no card (FLOPs, rank 0's argument bytes, collectives,
    and ``dense``: the attention ``"head_dim"``, checked);
-21. the kernels line — per kernel: launches in phases 5-7 (CNN), 11-13
+22. the kernels line — per kernel: launches in phases 5-7 and 9 (CNN;
+   in 9 the ``"cuda"`` sessions' runs beside the C), 12-14
    (LM: the kernel policy's run in ``lm_main`` and its fp32 control's
    prefill, the server's in ``lm_serve``, the tunings of ``lm_tune``),
-   15 (the CNN example), 17 (the trained ball net served) and 20 (the
+   16 (the CNN example), 18 (the trained ball net served) and 21 (the
    meshed sessions' runs), each counted from 0 and read as it ends, max
    error, and the kernel's, plain version's, bound's and library's ms
    per robot forward at batch 256 (maxpool2d's from the cold readings)
@@ -210,10 +230,10 @@ tuned arch); any failure propagates and the script exits non-zero:
    routes; for flash also its fp32 route (``fp32_route``:
    ``csrc/flash_attention.cu``, split TF32 on the tensor cores, at the
    same shapes, beside the plain version and SDPA in fp32, timed in
-   phase 10; its launches, counted apart, and its bound at 3 TF32
+   phase 11; its launches, counted apart, and its bound at 3 TF32
    products a product, 495 TFLOP/s, with fp32 FMA's 67 TFLOP/s bound
    beside it);
-22. the last line — ``{"ok": true, "device": {...}}``.
+23. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -618,7 +638,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
     cpu = torch.device("cpu")
     zero = {name: 0 for name in counts()}
 
-    # -- 16. train_grad --------------------------------------------------
+    # -- 17. train_grad --------------------------------------------------
     x = torch.rand(1, 8, 8, 4, device=dev, requires_grad=True)
     w, b = torch.rand(3, 3, 4, 4, device=dev), torch.zeros(4, device=dev)
     q = torch.rand(1, 2, 8, 32, device=dev, requires_grad=True)
@@ -674,7 +694,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
          local_cases=len(TRAIN_LOCAL_CASES), rtol=1e-4, atol=1e-5,
          max_abs_err=attn_err)
 
-    # -- 17. train_ball --------------------------------------------------
+    # -- 18. train_ball --------------------------------------------------
     five = [trained_ball_classifier(5, seed=0, eval_n=200, device=d)[0]
             for d in (dev, cpu)]
     ball_err = 0.0
@@ -725,7 +745,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
          int8_top1_agreement=float((top1(qsess.predict(xs))
                                     == top1(got)).mean()))
 
-    # -- 18. train_lm ----------------------------------------------------
+    # -- 19. train_lm ----------------------------------------------------
     cfg = train_mod.LM_100M
     tc = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH, seed=0)
@@ -848,7 +868,7 @@ def train_phases(torch, np, counts, reset_counts, launches) -> None:
          launches=lm_launches, resume_arrays=n_arrays,
          resume_max_abs_err=resume_err, resume_bit_equal=resume_equal)
 
-    # -- 19. train_smoke -------------------------------------------------
+    # -- 20. train_smoke -------------------------------------------------
     smoke = {}
     for arch, accum in TRAIN_SMOKE:
         scfg = dataclasses.replace(ARCHS[arch].smoke(), remat="full",
@@ -1062,6 +1082,174 @@ def launch_rest(torch, np, counts, reset_counts) -> dict:
     out["restore"] = dict(arch=cfg.name, leaves=len(leaves(got)),
                           bit_equal=True, on=str(dev), seconds=restore_s)
     return out
+
+
+def host_cpu() -> dict:
+    """The host's CPU as the first processor of ``/proc/cpuinfo`` names
+    it: ``model name``, and vendor, family, model and stepping (a
+    virtual machine may report its model name as "unknown"), and its
+    AVX-512 flags."""
+    first = Path("/proc/cpuinfo").read_text().split("\n\n")[0]
+    info = {}
+    for line in first.splitlines():
+        key, _, value = line.partition(":")
+        info[key.strip()] = value.strip()
+    return dict(cpu_model=info.get("model name", "unknown"),
+                cpu_id=" ".join(f"{k}={info.get(k, '?')}" for k in (
+                    "vendor_id", "cpu family", "model", "stepping")),
+                avx512_flags=sorted(f for f in info.get("flags", "").split()
+                                    if f.startswith("avx512")))
+
+
+def cgen_phase(torch, np, nets, sessions, main_batch, smi, counts,
+               reset_counts, launches) -> None:
+    """Phase 9: the C sessions of every net in fp32 and int8 on the host,
+    held to the card's sessions on the same camera frames, timed at
+    batch 1 beside them, and served."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import runtime
+    from repro_torch.data.pipeline import camera_frame_batch
+    from repro_torch.engine import (CalibrationConfig, InferenceSession,
+                                    SessionConfig)
+    from repro_torch.serve import InferenceServer, ServerConfig
+
+    t_phase = time.perf_counter()
+    host = dict(**host_cpu(), cpu_count=os.cpu_count(),
+                cc=runtime.cc_fingerprint(), best_isa=runtime.best_isa(),
+                int8_simds=runtime.supported_int8_simds())
+    simd32, simd8 = runtime.best_isa(), runtime.supported_int8_simds()[0]
+    before = dict(runtime.COMPILE_STATS)
+
+    def build(key):
+        name, precision = key
+        return InferenceSession(nets[name](0), config=SessionConfig(
+            backend="c", precision=precision,
+            simd=simd32 if precision == "fp32" else simd8))
+
+    # one cc -O3 a net and precision, all started together
+    reset_counts()
+    t0 = time.perf_counter()
+    keys = [(name, p) for name in main_batch for p in ("fp32", "int8")]
+    with ThreadPoolExecutor(max_workers=len(keys)) as ex:
+        c_sess = dict(zip(keys, ex.map(build, keys)))
+    build_s = time.perf_counter() - t0
+    out, c_launches, cuda_launches = {}, {}, {}
+    for name, batch in main_batch.items():
+        c32, c8 = c_sess[name, "fp32"], c_sess[name, "int8"]
+        frames = camera_frame_batch(batch, tuple(c32.input_shape), seed=21)
+        reset_counts()
+        got32, got8 = c32.predict(frames), c8.predict(frames)
+        lat32 = c32.benchmark(frames[0])
+        lat8 = c8.benchmark(frames[0])
+        torch.cuda.synchronize()
+        c_launches[name] = counts()
+        if any(c_launches[name].values()):
+            raise AssertionError(f"the C sessions of {name} launched "
+                                 f"{c_launches[name]}")
+        for got, sess in ((got32, c32), (got8, c8)):
+            if not (got.shape == (batch,) + tuple(sess.output_shape)
+                    and np.isfinite(got).all()):
+                raise AssertionError(f"{name} C output {got.shape}")
+        # the card's sessions: the "cuda" session of phase 5, and the
+        # int8 reference on the card from the C session's quantized graph
+        card8 = InferenceSession(nets[name](0), config=SessionConfig(
+            backend="torch", precision="int8",
+            calibration=CalibrationConfig(qparams={
+                n: (qp.scale, qp.zero_point)
+                for n, qp in c8.qgraph.acts.items()})))
+        q_c, q_card = c8.qgraph, card8.qgraph
+        if not (q_card.acts == q_c.acts and sorted(q_card.weights)
+                == sorted(q_c.weights) and all(
+                    np.array_equal(getattr(q_card.weights[n], f),
+                                   getattr(q_c.weights[n], f))
+                    for n in q_c.weights for f in ("w_scale", "w_q", "b_q"))):
+            raise AssertionError(f"{name}: the card's int8 graph is not "
+                                 f"the C session's")
+        cuda_sess = sessions[name][0]
+        reset_counts()
+        want32 = cuda_sess.predict(frames)
+        lat_cuda = cuda_sess.benchmark(frames[0], iters=200, warmup=20)
+        torch.cuda.synchronize()
+        got_cuda = counts()
+        cuda_launches = {k: cuda_launches.get(k, 0) + v
+                         for k, v in got_cuda.items()}
+        want8 = card8.predict(frames)
+        err32 = compare(torch.from_numpy(got32), torch.from_numpy(want32),
+                        1e-3, 1e-5, f"{name} C fp32 vs cuda")
+        if name == "robot":
+            if not np.array_equal(got8, want8):
+                raise AssertionError(
+                    f"int8 C robot differs from the card's int8 reference "
+                    f"on {int((got8 != want8).sum())} of {got8.size}")
+            err8 = 0.0
+        else:
+            err8 = compare(torch.from_numpy(got8), torch.from_numpy(want8),
+                           1e-5, 1e-6, f"{name} C int8 vs card int8")
+            top = (got8.reshape(batch, -1).argmax(-1),
+                   want8.reshape(batch, -1).argmax(-1))
+            if not (top[0] == top[1]).all():
+                raise AssertionError(f"{name} int8 C argmax differs")
+        out[name] = dict(
+            batch=batch,
+            fp32=dict(simd_requested=simd32, simd=c32.simd,
+                      c_source_bytes=c32.info["c_source_bytes"],
+                      arena_bytes=c32.info["arena_bytes"],
+                      schedule_digest=c32.info["schedule_digest"],
+                      max_abs_err_vs_cuda=err32, latency_us_b1=lat32),
+            int8=dict(simd_requested=simd8, simd=c8.simd,
+                      c_source_bytes=c8.info["c_source_bytes"],
+                      arena_bytes=c8.info["arena_bytes"],
+                      schedule_digest=c8.info["schedule_digest"],
+                      calibration_method=c8.qgraph.method,
+                      max_abs_err_vs_card_int8=err8,
+                      bit_equal=bool(np.array_equal(got8, want8)),
+                      latency_us_b1=lat8),
+            cuda=dict(latency_us_b1=lat_cuda, launches=got_cuda),
+            c_fp32_over_cuda_b1=lat32 / lat_cuda,
+            c_int8_over_cuda_b1=lat8 / lat_cuda)
+        del card8
+
+    robot = c_sess["robot", "fp32"]
+    frames = camera_frame_batch(256, tuple(robot.input_shape), seed=22)
+    reset_counts()
+    t0 = time.perf_counter()
+    with InferenceServer(robot, config=ServerConfig(
+            workers=2, max_batch=32)) as srv:
+        handles = [srv.submit(f) for f in frames]
+        outs = [h.result(timeout=120) for h in handles]
+        st = srv.stats()
+    serve_s = time.perf_counter() - t0
+    assert st["completed"] == len(frames), st
+    assert st["failed"] == st["timeouts"] == 0, st
+    for i, (o, f) in enumerate(zip(outs, frames)):
+        if not np.array_equal(o, robot.predict(f)):
+            raise AssertionError(f"C served frame {i} differs from "
+                                 f"session.predict")
+    serve_launches = counts()
+    if any(serve_launches.values()):
+        raise AssertionError(f"the C server launched {serve_launches}")
+    launches["cgen"] = cuda_launches  # the "cuda" sessions' runs only
+    emit("cgen", nvidia_smi=smi, host=host, build_s=build_s,
+         cc_invocations=runtime.COMPILE_STATS["cc_invocations"]
+         - before["cc_invocations"],
+         so_cache_hits=runtime.COMPILE_STATS["so_cache_hits"]
+         - before["so_cache_hits"],
+         nets=out, c_launches=c_launches, cuda_launches=cuda_launches,
+         tolerance={"fp32_vs_cuda": {"rtol": 1e-3, "atol": 1e-5},
+                    "int8_vs_card_int8": {"robot": "bit for bit",
+                                          "softmax sinks": {
+                                              "rtol": 1e-5, "atol": 1e-6,
+                                              "argmax": "equal"}}},
+         serve=dict(net="robot", precision="fp32", frames=len(frames),
+                    served_bit_equal=True, serve_s=serve_s, qps=st["qps"],
+                    latency_p50_us=st["latency_p50_us"],
+                    latency_p99_us=st["latency_p99_us"],
+                    batch_size_mean=st["batch_size_mean"],
+                    launches=serve_launches),
+         seconds=time.perf_counter() - t_phase)
+    for sess in c_sess.values():
+        sess.close()
 
 
 def main() -> int:
@@ -1528,7 +1716,11 @@ def main() -> int:
     del int8_sessions, robot8, mods, x, y8
     torch.cuda.empty_cache()
 
-    # -- 9. LM kernels against their plain versions ----------------------
+    # -- 9. the generated C on the card's host, beside the card ----------
+    cgen_phase(torch, np, nets, sessions, main_batch, smi, counts,
+               reset_counts, launches)
+
+    # -- 10. LM kernels against their plain versions ----------------------
     from repro_torch.configs.lm_archs import ARCHS
     from repro_torch.core.tree import leaves, tree_map
     from repro_torch.engine import (CudaLMBackend, LMConfig, LMSession,
@@ -1751,7 +1943,7 @@ def main() -> int:
                            dtype="float32", policy="kernels",
                            max_abs_err=padded_err))
 
-    # -- 10. LM kernel time at the main path's shapes --------------------
+    # -- 11. LM kernel time at the main path's shapes --------------------
     lm_rows = {"flash_attention": [], "linear_scan": []}
     lm_rows_fp32 = []  # flash's fp32 route, csrc/flash_attention.cu
     t = LM_PROMPT
@@ -1808,7 +2000,7 @@ def main() -> int:
         emit("lm_time", kernel="flash_attention", route="fp32",
              source=FLASH_FP32_SOURCE, **r)
 
-    # -- 11-13. the LM main path, serving and tuning, one arch at a time -
+    # -- 12-14. the LM main path, serving and tuning, one arch at a time -
     def timed_generate(sess, prompts, max_new):
         """Greedy tokens, the prefill's last logits, the last decode
         logits, and the seconds of the prefill and of each decode step
@@ -2318,7 +2510,7 @@ def main() -> int:
         lm_phases(arch)
         torch.cuda.empty_cache()
 
-    # -- 14. the graphed decode on every decoding arch's smoke config ----
+    # -- 15. the graphed decode on every decoding arch's smoke config ----
     def smoke_backend(arch, batch, **changes):
         cfg = dataclasses.replace(ARCHS[arch].smoke(), **changes)
         return CudaLMBackend(cfg, max_context=40, decode_batch=batch)
@@ -2368,7 +2560,7 @@ def main() -> int:
     emit("lm_decode_graph", dtype="float32", prompt=12, new_tokens=8,
          archs=graph_runs, interleaved_handles_equal=interleaved)
 
-    # -- 15. the serving examples, each a process of its own -------------
+    # -- 16. the serving examples, each a process of its own -------------
     example_lines = {}
     for name, ok in (("serve_lm_torch", "serve_lm_torch: OK"),
                      ("serve_cnn_torch", "serve_cnn_torch: OK")):
@@ -2391,15 +2583,15 @@ def main() -> int:
     emit("examples", runs=example_lines,
          launches=launches["examples serve_cnn_torch"])
 
-    # -- 16-19. training ------------------------------------------------
+    # -- 17-20. training ------------------------------------------------
     train_phases(torch, np, counts, reset_counts, launches)
 
-    # -- 20. the launch --------------------------------------------------
+    # -- 21. the launch --------------------------------------------------
     launch_out.update(launch_rest(torch, np, counts, reset_counts))
     launch_out["dryrun"] = run_dryrun()
     emit("launch", nvidia_smi=smi, **launch_out)
 
-    # -- 21. the kernels line --------------------------------------------
+    # -- 22. the kernels line --------------------------------------------
     for phase, got in launches.items():
         want = ([lm_kernel_of[phase.split()[1]]] if phase.startswith("lm_")
                 else ["conv2d", "maxpool2d"])

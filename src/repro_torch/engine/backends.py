@@ -1,23 +1,28 @@
 """Backend registry of the port's inference engine, counterparts of the
 JAX package's ``engine/backends.py``.
 
-One optimized :class:`~repro_torch.core.graph.CNNGraph`, two execution
+One optimized :class:`~repro_torch.core.graph.CNNGraph`, three execution
 substrates:
 
+* ``"c"``     — the paper's artifact: NNCG-generated ANSI C
+  (:mod:`repro_torch.core.codegen`), compiled with the host ``cc`` and
+  loaded through ctypes (:mod:`repro_torch.core.runtime`); it runs on the
+  host and launches nothing on the card;
 * ``"torch"`` — plain eager PyTorch (:func:`torch_exec.forward`), the
   counterpart of ``"xla"``;
 * ``"cuda"``  — the hand-written Hopper conv2d and maxpool2d kernels
   (:func:`torch_exec.forward_kernels`), the counterpart of ``"pallas"``.
 
-Both hold the graph's weights as buffers of a :class:`CNNModule` on one
-device.  At ``precision="int8"`` the session builds
+The last two hold the graph's weights as buffers of a :class:`CNNModule`
+on one device.  At ``precision="int8"`` the session builds
 :class:`QuantizedTorchBackend` (``"torch-int8"``, the counterpart of
 ``"xla-int8"``; not in the registry, since it needs the calibrated
 quantized graph): the int8 reference
 (:func:`torch_exec.forward_quantized`) over a
-:class:`QuantizedCNNModule`.  ``worker()`` hands each server worker a handle with its own
-``torch.cuda.Stream`` over the same weights, so workers' batches can
-overlap on the card.
+:class:`QuantizedCNNModule`; ``"c"`` builds int8 C from the same
+quantized graph.  ``worker()`` hands each server worker a handle with its
+own ``torch.cuda.Stream`` over the same weights, so workers' batches can
+overlap on the card; on ``"c"``, a handle with its own C arena.
 
 And the LM workload: ``"cuda-lm"`` (:class:`CudaLMBackend`, the
 counterpart of ``"pallas-lm"``) runs the LM stack of
@@ -33,13 +38,16 @@ from __future__ import annotations
 import abc
 import contextlib
 import copy
+import ctypes
 import threading
 import time
-from typing import Dict, List, Type
+from dataclasses import replace
+from typing import Dict, List, Optional, Type
 
 import numpy as np
 import torch
 
+from ..core import cgen, runtime
 from ..core.graph import CNNGraph
 from ..models import lm as lm_mod
 from ..models.kernel_policy import DEFAULT_KERNELS, KernelPolicy
@@ -121,6 +129,118 @@ class Backend(abc.ABC):
         """A handle a server worker thread may use concurrently with
         other workers' handles (default: ``self``)."""
         return self
+
+
+class _CArenaWorker(Backend):
+    """A per-thread handle on a compiled net: one warm liveness-planned
+    workspace, driven through the reentrant ``<func>_ws`` entry.  Many
+    of these can run concurrently against the same ``.so`` — ctypes
+    releases the GIL during the call."""
+
+    name = "c-worker"
+
+    def __init__(self, parent: "CBackend"):
+        super().__init__(parent.graph)
+        self.name = parent.name + "-worker"
+        self.precision = parent.precision
+        self._net = parent.net
+        self._ws = self._net._alloc_workspace()
+        self._wp = self._ws.ctypes.data_as(
+            ctypes.POINTER(self._net._ws_ctype))
+
+    def predict_batch(self, x: np.ndarray) -> np.ndarray:
+        net = self._net
+        x = np.ascontiguousarray(x, dtype=np.float32)
+        n = x.size // net.in_size
+        if net._stage_fns and n > 1:
+            # layer-pipelined build: stream the batch stage-overlapped
+            # (the runner allocates its own buffers — reentrant across
+            # concurrent server workers)
+            return net.predict_batch(x).reshape((n,) + self.out_shape)
+        out = np.empty(n * net.out_size, dtype=np.float32)
+        FLOATP = ctypes.POINTER(ctypes.c_float)
+        if net._batch_ws_fn is not None:
+            # the whole batch in one GIL-releasing foreign call
+            net._batch_ws_fn(x.ctypes.data_as(FLOATP),
+                             out.ctypes.data_as(FLOATP),
+                             ctypes.c_int(n), self._wp)
+            return out.reshape((n,) + self.out_shape)
+        xf = x.reshape(-1)
+        for b in range(n):
+            xi = xf[b * net.in_size:(b + 1) * net.in_size]
+            oi = out[b * net.out_size:(b + 1) * net.out_size]
+            net._ws_fn(xi.ctypes.data_as(FLOATP),
+                       oi.ctypes.data_as(FLOATP), self._wp)
+        return out.reshape((n,) + self.out_shape)
+
+
+@register_backend("c")
+class CBackend(Backend):
+    """NNCG: graph -> C -> cc -> ctypes. Batches run through the
+    generated ``<func>_batch`` loop wrapper, or — with ``threads>1`` —
+    thread-parallel over the reentrant ``<func>_ws`` workspace entry
+    (each thread owns one liveness-planned arena).
+
+    Passing ``qgraph`` (a calibrated
+    :class:`repro_torch.core.quantize.QuantizedGraph`) selects the int8
+    codegen path: int8 weights/intermediates, int32 accumulators, a
+    byte-planned arena, float32 in/out — same serving interface."""
+
+    def __init__(self, graph: CNNGraph, *, simd: str = "sse",
+                 unroll=0, func_name: str = "nncg_net",
+                 term_budget: Optional[int] = None,
+                 threads: Optional[int] = None,
+                 qgraph=None, schedule=None):
+        super().__init__(graph)
+        kw = {} if term_budget is None else {"term_budget": term_budget}
+        self.opts = cgen.CodegenOptions(simd=simd, unroll=unroll,
+                                        func_name=func_name, **kw)
+        self.threads = threads
+        self.qgraph = qgraph
+        self.schedule = schedule
+        if qgraph is not None:
+            self.precision = "int8"
+            self.net = runtime.build_quantized(qgraph, self.opts,
+                                               schedule=schedule)
+        else:
+            self.net = runtime.build(graph, self.opts, schedule=schedule)
+        if self.net.simd != self.opts.simd:
+            # the runtime CPU-feature guard demoted the requested
+            # variant; report what actually runs
+            self.opts = replace(self.opts, simd=self.net.simd)
+
+    def predict_batch(self, x: np.ndarray) -> np.ndarray:
+        n = x.shape[0]
+        out = self.net.predict_batch(x, threads=self.threads)
+        return out.reshape((n,) + self.out_shape)
+
+    def describe(self) -> dict:
+        d = super().describe()
+        d.update(simd=self.opts.simd, threads=self.threads,
+                 so_path=self.net.so_path,
+                 c_source_bytes=self.net.c_source_bytes,
+                 arena_bytes=self.net.arena_bytes,
+                 arena_buffer_sum_bytes=self.net.arena_buffer_sum_bytes,
+                 per_layer_live_bytes=dict(
+                     self.net.per_layer_live_bytes or {}),
+                 pipeline_stages=self.net.nstages,
+                 schedule_digest=self.net.schedule_digest)
+        return d
+
+    def worker(self) -> Backend:
+        if self.net._ws_fn is None:  # pre-arena .so: not reentrant
+            return self
+        return _CArenaWorker(self)
+
+    def time_per_call_us(self, x: np.ndarray, iters: int = 500,
+                         warmup: int = 20) -> float:
+        # ctypes-level loop: excludes Python dispatch, like the paper's
+        # in-process measurement. One image only — a batch here would
+        # silently time just its first image.
+        assert x.size == self.net.in_size, (
+            f"time_per_call_us expects one image of {self.graph.input_shape}, "
+            f"got {x.shape}")
+        return self.net.time_per_call_us(x, iters=iters, warmup=warmup)
 
 
 class _ModuleBackend(Backend):

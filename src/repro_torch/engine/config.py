@@ -4,24 +4,28 @@ sub-config ``CalibrationConfig`` and its ``lm`` sub-config ``LMConfig``).
 
     cfg = SessionConfig(backend="cuda")              # a CNN on cuda:0
     cfg = SessionConfig(backend="torch", device="cpu")
+    cfg = SessionConfig(backend="c", autotune=True)  # generated C, host cc
     cfg = SessionConfig(backend="torch", precision="int8",
                         calibration=CalibrationConfig(method="minmax"))
     cfg = SessionConfig(backend="cuda-lm",           # an LM on cuda:0
                         lm=LMConfig(arch="gemma3-4b", smoke=False))
 
 ``device=None`` means the card (``cuda:0``); a session asked for the card
-on a machine without one raises ``RuntimeError``.  ``autotune=True`` times
-the LM kernel variants (:mod:`repro_torch.engine.autotune`) and caches the
+on a machine without one raises ``RuntimeError``.  The ``"c"`` backend
+runs the generated C on the host, so it takes ``device=None`` or
+``"cpu"`` only.  ``autotune=True`` times the C code versions or the LM
+kernel variants (:mod:`repro_torch.engine.autotune`) and caches the
 winner in ``tune_cache``; ``LMConfig.mesh_shape`` runs the LM over a
 device mesh (:class:`repro_torch.engine.LMSession`).  The C code
-generator's knobs (simd, unroll, threads, fusion, pipeline stages) have
-no meaning here.
+generator's knobs (``simd``, ``simd_search``, ``unroll``, ``threads``,
+``func_name``, ``fusion``, ``pipeline_stages``) carry the JAX package's
+defaults and checks, and are read by the ``"c"`` backend only.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -185,23 +189,44 @@ class SessionConfig:
     """Everything a session needs beyond the graph or the arch.
 
     * ``backend`` — ``"cuda"`` (the hand-written CNN kernels), ``"torch"``
-      (plain eager PyTorch) or, for an LM, ``"cuda-lm"``; see
+      (plain eager PyTorch), ``"c"`` (the paper's generated ANSI C,
+      compiled with the host ``cc``) or, for an LM, ``"cuda-lm"``; see
       :func:`repro_torch.engine.backends.available_backends`.
     * ``optimize`` — run the NNCG passes (BN fold, activation fusion,
       channel alignment) before building a CNN backend.
-    * ``precision`` — ``"fp32"`` or ``"int8"`` (post-training int8,
-      ``backend="torch"`` only: the int8 reference runs no kernel).
+    * ``precision`` — ``"fp32"`` or ``"int8"`` (post-training int8, on
+      ``backend="torch"`` (the int8 reference) or ``"c"`` (int8 C)).
     * ``calibration`` — the int8 calibration knobs
       (:class:`CalibrationConfig`, or a dict of its fields).
-    * ``device`` — a torch device string; ``None`` = ``cuda:0``.
-    * ``autotune`` — an LM session times its kernel variants and keeps
-      the fastest (:func:`repro_torch.engine.autotune.tune_lm_variants`);
-      a CNN session has nothing to tune and builds its backend as is.
+    * ``device`` — a torch device string; ``None`` = ``cuda:0`` (the
+      host's CPU for ``"c"``, which takes ``None`` or ``"cpu"`` only).
+    * ``autotune`` — ``"c"``: benchmark every per-layer code version
+      (and, at int8, every simd x fusion candidate) and keep the
+      fastest; an LM session times its kernel variants
+      (:func:`repro_torch.engine.autotune.tune_lm_variants`); the other
+      CNN backends have nothing to tune and build as is.
     * ``tune_cache`` — the tuning cache: a directory path, a
       :class:`~repro_torch.engine.autotune.TuningCache`, or ``None`` for
       the default directory.
-    * ``tune_iters`` — the measurement budget; an LM tuning takes the
-      best of ``max(1, tune_iters // 100)`` prefills a candidate.
+    * ``tune_iters`` — the measurement budget: timing iterations a C
+      candidate; an LM tuning takes the best of
+      ``max(1, tune_iters // 100)`` prefills a candidate.
+    * ``simd`` — ``"c"``: the codegen mode (``"generic"``,
+      ``"structured"``, ``"sse"``, ``"avx"``; at int8 also the
+      ``QISAS`` variants); ``None`` = the widest the host supports.
+    * ``simd_search`` — ``"c"`` with ``autotune``: modes to tune under;
+      the fastest (mode, levels) pair is kept.
+    * ``unroll`` — ``"c"`` without autotune: ``"auto"`` (the static
+      heuristic), one level, or a per-layer dict.
+    * ``threads`` — ``"c"``: drive a batch thread-parallel through the
+      reentrant ``<func>_ws`` entry.
+    * ``func_name`` — the generated C's entry symbol.
+    * ``fusion`` — ``"c"``: epilogue fusion of residual Adds, pools and
+      Concat edges (``None`` = auto = on; int8 autotune also times the
+      kind subsets); the output is bitwise identical either way.
+    * ``pipeline_stages`` — ``"c"``: 1 = one function, k > 1 = a
+      layer-pipelined build streaming a batch across k cores, 0 = tune
+      the stage count on this host.
     * ``lm`` — the LM workload (:class:`LMConfig`), served by
       :class:`repro_torch.engine.LMSession`; ``None`` = a CNN session.
     """
@@ -215,6 +240,14 @@ class SessionConfig:
     tune_iters: int = 300
     calibration: CalibrationConfig = field(default_factory=CalibrationConfig)
     lm: Optional[LMConfig] = None
+    # the C code generator's knobs (backend "c"), with the JAX defaults
+    simd: Optional[str] = None
+    simd_search: Optional[Tuple[str, ...]] = None
+    unroll: Union[str, int, None, Dict] = "auto"
+    threads: Optional[int] = None
+    func_name: str = "nncg_net"
+    fusion: Optional[bool] = None
+    pipeline_stages: int = 1
 
     def __post_init__(self):
         if self.precision not in _PRECISIONS:
@@ -222,11 +255,22 @@ class SessionConfig:
                 f"precision {self.precision!r}; expected one of {_PRECISIONS}")
         if self.tune_iters < 1:
             raise ValueError(f"tune_iters {self.tune_iters} < 1")
+        if self.pipeline_stages < 0:
+            raise ValueError(
+                f"pipeline_stages {self.pipeline_stages} < 0 "
+                f"(0 = auto, 1 = single stage, k = k stages)")
         if self.device is not None:
-            torch.device(self.device)  # raises on a malformed device string
+            dev = torch.device(self.device)  # raises on a malformed string
+            if self.backend == "c" and dev.type != "cpu":
+                raise ValueError(
+                    f"backend 'c' runs the generated C on the host: device "
+                    f"must be None or 'cpu', not {self.device!r}")
         object.__setattr__(self, "calibration",
                            _coerce_calibration(self.calibration))
         object.__setattr__(self, "lm", _coerce_lm(self.lm))
+        if self.simd_search is not None:
+            object.__setattr__(self, "simd_search",
+                               tuple(self.simd_search))
 
     def replace(self, **changes) -> "SessionConfig":
         """A copy with ``changes`` applied."""
@@ -255,6 +299,8 @@ class SessionConfig:
         d = dataclasses.asdict(p)
         d["calibration"] = p.calibration.to_dict()
         d["lm"] = None if p.lm is None else p.lm.to_dict()
+        if d["simd_search"] is not None:
+            d["simd_search"] = list(d["simd_search"])
         return d
 
     @classmethod

@@ -6,7 +6,8 @@ The engine predicts; this module *serves*.  Architecture::
     submit(frame) ──► bounded queue ──► worker 0 ─┐
                       (backpressure)   worker 1 ─┼─► Backend.worker()
                                        ...       │   handles (one CUDA
-                                                 ┘   stream each)
+                                                 ┘   stream or C arena
+                                                     each)
 
 * **Bounded request queue** — ``submit()`` on a full queue raises
   :class:`ServerOverloaded` immediately (backpressure, never a hang);
@@ -20,7 +21,10 @@ The engine predicts; this module *serves*.  Architecture::
 * **Worker pool** — each worker thread asks the session's backend for
   a :meth:`~repro_torch.engine.backends.Backend.worker` handle: the same
   weights on the card with a CUDA stream of its own, so one worker's
-  batch can run on the card while another gathers or copies.
+  batch can run on the card while another gathers or copies; on the
+  ``"c"`` backend the same ``.so`` with a C arena of its own, driven
+  through the reentrant ``<func>_batch_ws`` entry (ctypes releases the
+  GIL, so workers run on separate cores).
 * **Per-request timeout** — a request that waited longer than
   ``request_timeout_ms`` in the queue fails with
   :class:`RequestTimeout` instead of wasting a batch slot.

@@ -26,7 +26,11 @@ three digits; ``test_torch_session_is_fp32_with_default_switches``
 leaves the switches at their defaults and shows the ``"torch"`` backend
 sets what it needs itself.  The int8 reference is exact on the integer
 path, so its card output equals its CPU output on the same quantized
-graph bit for bit; a Softmax sink is held at rtol 1e-5 / atol 1e-6.
+graph bit for bit; a Softmax sink is held at rtol 1e-5 / atol 1e-6.  The
+``"c"`` backend runs the generated C on the card's host: fp32 against
+the ``"cuda"`` session at rtol 1e-3 / atol 1e-5, int8 against the int8
+reference on the card from the same quantized graph (bit for bit on the
+robot, 1e-5 / 1e-6 and the same argmax on the Softmax nets).
 """
 import numpy as np
 import pytest
@@ -848,6 +852,47 @@ def test_int8_forward_on_the_card_equals_the_cpu(cuda, name):
 def test_int8_softmax_nets_on_the_card_match_the_cpu(cuda, name):
     card, cpu = _int8_card_and_cpu(cuda, name)
     np.testing.assert_allclose(card, cpu, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------- the C beside the card ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(NETS))
+def test_c_session_matches_the_cuda_session(cuda, name):
+    """The generated C on the card's host (the host's widest ISA, unroll
+    ``"auto"``) against the kernel path on the card, at the reference's
+    bar for C against its oracle: rtol 1e-3 / atol 1e-5."""
+    from repro_torch.engine import InferenceSession, SessionConfig
+    c = InferenceSession(NETS[name](0), config=SessionConfig(backend="c"))
+    kern = InferenceSession(NETS[name](0),
+                            config=SessionConfig(backend="cuda"))
+    assert str(c.device) == "cpu" and c.info["simd"] is not None
+    x = _rnd(7, (8,) + tuple(c.input_shape))
+    before = (conv_mod.launches, pool_mod.launches)
+    got = c.predict(x)
+    assert (conv_mod.launches, pool_mod.launches) == before
+    np.testing.assert_allclose(got, kern.predict(x), rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(NETS))
+def test_int8_c_session_matches_the_int8_reference_on_the_card(cuda, name):
+    """Int8 C against the int8 reference on the card, built from the same
+    quantized graph: bit for bit on the robot, rtol 1e-5 / atol 1e-6 and
+    the same argmax on the nets whose sinks are Softmax."""
+    from repro_torch.engine import (InferenceSession, QuantizedTorchBackend,
+                                    SessionConfig)
+    c = InferenceSession(NETS[name](0), config=SessionConfig(
+        backend="c", precision="int8", calibration={"samples": 16}))
+    card = QuantizedTorchBackend(c.qgraph, cuda)
+    x = _rnd(8, (8,) + tuple(c.input_shape))
+    got, want = c.predict(x), card.predict_batch(x)
+    if name == "robot":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        assert (got.reshape(8, -1).argmax(-1)
+                == want.reshape(8, -1).argmax(-1)).all()
 
 
 @pytest.mark.cuda

@@ -58,7 +58,7 @@ def test_session_accepts_a_carried_graph():
 
 
 def test_backends_registered_and_config_validated():
-    assert available_backends() == ["cuda", "cuda-lm", "torch"]
+    assert available_backends() == ["c", "cuda", "cuda-lm", "torch"]
     with pytest.raises(ValueError, match="unknown backend"):
         InferenceSession(NETS["ball"](0), config=SessionConfig(
             backend="pallas", device="cpu"))

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -25,6 +26,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.core.torch_exec" in mods
     assert "repro_torch.serve.server" in mods
+    assert "repro_torch.core.cgen" in mods
+    assert "repro_torch.core.runtime" in mods
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,3 +92,20 @@ def test_no_except_falls_back_to_the_plain_path(path):
         assert not {"ref", "conv2d_ref", "maxpool2d_ref", "forward",
                     "forward_kernels", "predict_batch"} & names, text
         assert "cpu" not in text, text
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_generated_c_names_no_jax(precision):
+    """The C the port generates names its generator, not the JAX one."""
+    from repro_torch.configs.cnn_paper import residual_cnn
+    from repro_torch.core import cgen, codegen, passes, quantize
+    g = passes.optimize(residual_cnn(0), simd_multiple=1)
+    unit = g
+    if precision == "int8":
+        xs = np.random.default_rng(0).normal(
+            size=(4,) + tuple(g.input_shape)).astype(np.float32)
+        unit = quantize.quantize(g, xs, device="cpu")
+    src = codegen.compile(unit, cgen.CodegenOptions(
+        simd="generic", unroll=None)).source
+    assert src.startswith("/* Generated by NNCG (PyTorch port; ")
+    assert not re.search(r"jax", src, re.I)
