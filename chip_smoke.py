@@ -84,7 +84,26 @@ tuned arch); any failure propagates and the script exits non-zero:
    and maxpool2d launches go into the kernels line; then 256 robot
    frames through ``InferenceServer(workers=2, max_batch=32)`` on
    ``"c"``, each equal to ``session.predict`` bit for bit, with QPS and
-   p50 / p99.  Each C build is one ``cc -O3``, all started together;
+   p50 / p99.  Each C build is one ``cc -O3``, all started together.
+   Then the code generator's two gates on the same host, through the
+   port's tools (``tools/strict_c89_torch.py``,
+   ``tools/cross_check_torch.py``), each a line of its own:
+   ``strict_c89``, the paper's "plain ANSI C" claim: the tool's 12
+   generic sources (ball unrolled and rolled, the residual DAG fused,
+   unfused and in two stages, int8 under minmax, mse and percentile,
+   the pooling/Concat DAG in fp32, int8 and per-channel int8; the int8
+   ones calibrated on the card) each compiled by the host's ``cc``
+   under ``-std=c89 -Wall -Wextra -Werror -pedantic-errors``, with each
+   source's bytes and the gate's seconds; ``cross_check``, the int8 C
+   run: the tool's three nets (the kernel zoo, the camera conv net, the
+   pooling/Concat DAG with per-channel zero points; calibrated on the
+   CPU) as ``generic`` C with its file-I/O harness, built and run on
+   the host, the raw float32 outputs bit for bit equal to
+   ``forward_quantized`` of the same quantized graph on the card; the
+   ARM lanes (``neon``, ``neon_dot`` under ``qemu-aarch64``) too where
+   an aarch64 cross compiler and QEMU are found (``arm_lanes``:
+   ``"ran"`` or ``"toolchain missing"``); neither gate launches a
+   kernel.  Any failed case fails the run;
 10. lm_kernels — flash attention and the linear scan against their plain
    versions on the card: the JAX suite's cases (flash fp32 2e-5 and
    bf16 3e-2; scan fp32 1e-4 and bf16 5e-2), the archs' head dims (80
@@ -1250,6 +1269,81 @@ def cgen_phase(torch, np, nets, sessions, main_batch, smi, counts,
          seconds=time.perf_counter() - t_phase)
     for sess in c_sess.values():
         sess.close()
+    c_tool_gates(torch, np, smi, counts, reset_counts)
+
+
+def load_tool(name: str):
+    """A script of ``tools/`` loaded as a module by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def c_tool_gates(torch, np, smi, counts, reset_counts) -> None:
+    """Phase 9's gates on the card's host: the strict ANSI C89 compile
+    of ``strict_c89_torch``'s cases, then ``cross_check_torch``'s nets
+    built, run and held bit for bit to ``forward_quantized`` on the
+    card (the ARM lanes too where their toolchain exists)."""
+    import platform
+
+    strict = load_tool("strict_c89_torch")
+    cross = load_tool("cross_check_torch")
+    cc = strict.find_cc()
+    if cc is None:
+        raise AssertionError("strict_c89: no C compiler on the card's host")
+    cc_version = subprocess.run([cc, "--version"], capture_output=True,
+                                text=True, timeout=60).stdout.splitlines()[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    cases = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, nbytes, proc in strict.run_cases(cc, "cuda:0", tmp):
+            if proc.returncode != 0:
+                raise AssertionError(f"strict_c89: {tag}: FAILED\n"
+                                     f"{proc.stderr[:4000]}")
+            cases.append(dict(tag=tag, source_bytes=nbytes, result="OK"))
+    strict_s = time.perf_counter() - t0
+    if [c["tag"] for c in cases] != [c[0] for c in strict.CASES]:
+        raise AssertionError(f"strict_c89 ran {cases}")
+    strict_launches = counts()
+    emit("strict_c89", nvidia_smi=smi, cc=cc, cc_version=cc_version,
+         flags=strict.STRICT_FLAGS, int8_calibration_device="cuda:0",
+         cases=cases, ok=f"{len(cases)}/{len(strict.CASES)}",
+         launches=strict_launches, seconds=strict_s)
+
+    arm_cc, qemu = cross.find_toolchain()
+    host = platform.machine()
+    reset_counts()
+    t0 = time.perf_counter()
+    lanes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, g0 in cross.nets().items():
+            _, qg, xs = cross.prepare(name, g0)
+            runs = [dict(cc=cc, run=[], variants=["generic"], link=(),
+                         arch=host)]
+            if arm_cc and qemu:
+                runs.append(dict(cc=arm_cc, run=[qemu, "-cpu", "max"],
+                                 variants=cross.ARM_VARIANTS))
+            for kw in runs:
+                for tag, ok, msg in cross.check_net(
+                        name, qg, xs, tmp=tmp, device="cuda:0", **kw):
+                    if not ok:
+                        raise AssertionError(msg)
+                    lanes.append(dict(tag=tag, result=msg.split(": ", 2)[2]))
+    cross_s = time.perf_counter() - t0
+    cross_launches = counts()
+    if any(strict_launches.values()) or any(cross_launches.values()):
+        raise AssertionError(f"the C gates launched {strict_launches} "
+                             f"{cross_launches}")
+    emit("cross_check", nvidia_smi=smi, host_lane=dict(
+        cc=cc, arch=host, variants=["generic"], oracle=(
+            "forward_quantized on cuda:0, bit for bit")),
+         lanes=lanes, arm_lanes="ran" if arm_cc and qemu
+         else "toolchain missing", arm_cc=arm_cc, qemu=qemu,
+         launches=cross_launches, seconds=cross_s)
 
 
 def main() -> int:
