@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Type
 import numpy as np
 import torch
 
+from .. import spans
 from ..core import cgen, runtime
 from ..core.graph import CNNGraph
 from ..models import lm as lm_mod
@@ -407,13 +408,14 @@ class LMBackend(Backend):
         prompts = np.asarray(prompts, np.int32)
         if max_new < 1:
             return np.zeros((prompts.shape[0], 0), np.int32)
-        logits, handle = self.prefill(prompts)
-        tok = np.argmax(logits, axis=-1).astype(np.int32)
-        out = [tok]
-        for _ in range(max_new - 1):
-            logits = self.decode(handle, tok)
+        with spans.span("lm.generate"):
+            logits, handle = self.prefill(prompts)
             tok = np.argmax(logits, axis=-1).astype(np.int32)
-            out.append(tok)
+            out = [tok]
+            for _ in range(max_new - 1):
+                logits = self.decode(handle, tok)
+                tok = np.argmax(logits, axis=-1).astype(np.int32)
+                out.append(tok)
         return np.stack(out, axis=1)
 
 
@@ -541,10 +543,12 @@ class CudaLMBackend(LMBackend):
         st["tokens"].copy_(torch.from_numpy(np.asarray(tokens, np.int64)))
         if handle.graph is None:  # the second: capture once, then replay
             graph = torch.cuda.CUDAGraph()
-            st["logits"] = self._capture(graph,
-                                         lambda: self._graph_step(handle))
+            with spans.span("decode.capture"):
+                st["logits"] = self._capture(
+                    graph, lambda: self._graph_step(handle))
             handle.graph = graph
-        handle.graph.replay()
+        with spans.span("decode.launch"):
+            handle.graph.replay()
         return st["logits"]
 
     # ----------------------------------------------------- LM contract --
@@ -554,10 +558,11 @@ class CudaLMBackend(LMBackend):
         if t > self.max_context:
             raise ValueError(
                 f"prompt length {t} > max_context {self.max_context}")
-        with self._running():
+        with spans.span("backend.prefill"), self._running():
             logits, caches, pos = self._prefill_fn(
                 self.params, {"tokens": self._tokens(tokens)})
-            out = logits.cpu().numpy()
+            with spans.span("backend.logits_to_host"):
+                out = logits.cpu().numpy()
         return out, KVCacheHandle(caches, pos, batch=b)
 
     def decode(self, handle: KVCacheHandle, tokens: np.ndarray) -> np.ndarray:
@@ -569,15 +574,20 @@ class CudaLMBackend(LMBackend):
                 f"position {handle.pos} is past max_context "
                 f"{self.max_context}")
         tokens = np.asarray(tokens, np.int32).reshape(handle.batch, 1)
-        with self._running():
+        with spans.span("backend.decode") as rec, self._running():
+            if rec is not None:  # recording
+                rec["attrs"].update(pos=handle.pos, step=(
+                    "eager" if handle.static is None or self._stream is None
+                    else "capture" if handle.graph is None else "replay"))
             if self._stream is None:
                 logits, handle.caches, handle.pos = self._decode_fn(
                     self.params, handle.caches, self._tokens(tokens),
                     handle.pos)
+            else:
+                logits = self._decode_graphed(handle, tokens)
+                handle.pos += 1
+            with spans.span("backend.logits_to_host"):
                 return logits.cpu().numpy()
-            out = self._decode_graphed(handle, tokens).cpu().numpy()
-            handle.pos += 1
-            return out
 
     # ------------------------------------------------- shared contract --
     def predict_batch(self, x: np.ndarray) -> np.ndarray:

@@ -21,9 +21,12 @@ their experts' owners and back by ``all_to_all``
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from .layers import act_fn, linear
 
 
@@ -42,6 +45,16 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int,
     return logits, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), eidx
 
 
+def _device_span(fn):
+    """``fn`` timed as one ``moe.mlp`` device span (:mod:`..spans`)."""
+    @functools.wraps(fn)
+    def traced(x, p, **kw):
+        with spans.device_span("moe.mlp", x.device):
+            return fn(x, p, **kw)
+    return traced
+
+
+@_device_span
 def moe_mlp(x: torch.Tensor, p: dict, *, top_k: int, act: str = "silu",
             capacity_factor: float = 1.25,
             router_in_f32: bool = True) -> torch.Tensor:
@@ -53,6 +66,8 @@ def moe_mlp(x: torch.Tensor, p: dict, *, top_k: int, act: str = "silu",
     s, d = x.shape
     e = p["router"].shape[1]
     c = capacity(s, top_k, e, capacity_factor)
+    spans.count("moe.routed_slots", s * top_k)
+    spans.count("moe.buffer_slots", e * c)
     _, gates, eidx = route(x, p["router"], top_k, router_in_f32)
 
     # ---- sort-based dispatch ----
@@ -88,6 +103,7 @@ def moe_mlp(x: torch.Tensor, p: dict, *, top_k: int, act: str = "silu",
     return y
 
 
+@_device_span
 def moe_mlp_ep(x: torch.Tensor, p: dict, *, top_k: int, group,
                act: str = "silu", capacity_factor: float = 1.25
                ) -> torch.Tensor:
@@ -108,6 +124,8 @@ def moe_mlp_ep(x: torch.Tensor, p: dict, *, top_k: int, group,
     e_local = p["wg"].shape[0]
     e = e_local * n_dev
     c = capacity(s, top_k, e, capacity_factor)
+    spans.count("moe.routed_slots", s * top_k)
+    spans.count("moe.buffer_slots", e * c)
     _, gates, eidx = route(x, p["router"], top_k)
 
     flat_e = eidx.reshape(-1)

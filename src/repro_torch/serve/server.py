@@ -33,7 +33,13 @@ The engine predicts; this module *serves*.  Architecture::
   fails queued requests with :class:`ServerClosed`.
 * **Observability** — per-request stage timestamps on the returned
   :class:`InferenceResult`, and rolling p50/p99 latency, queue depth,
-  batch occupancy, QPS and rejection counters via :meth:`stats`.
+  batch occupancy, QPS and rejection counters via :meth:`stats`.  For
+  where an LM batch's time goes, turn on the span recorder,
+  :mod:`repro_torch.spans` (``spans.enable()``, serve,
+  ``spans.disable()``, ``spans.drain()``): on the worker thread, each
+  batch's ``lm.generate``, and under it the ``"cuda-lm"`` backend's
+  prefill, decode steps (eager, capture or replay), graph launches,
+  logits copies and MoE layers.  It is off by default.
 """
 from __future__ import annotations
 
