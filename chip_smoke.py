@@ -124,7 +124,15 @@ tuned arch); any failure propagates and the script exits non-zero:
    in bf16 and in fp32 (the gates of ``lm_main`` on the layer's
    contribution), and one h2o-danube-3-4b layer in fp32 with its head
    dim padded 120 -> 128 by ``pad_head_dim``, equal to the unpadded
-   layer through the kernel policy at rtol / atol 2e-5;
+   layer through the kernel policy at rtol / atol 2e-5; and the
+   decode-attention kernel against its plain version on
+   ``DECODE_ATTN_CASES`` (``kernels/cases.py``: caches of 1 to 32,768
+   slots, G 1 to 8, head dims 16 to 256, rings with windows) by
+   ``check_decode``: within one bf16 unit in the last place (2**-7
+   relative, 1e-5 absolute) but for at most 1e-3 of the outputs, where
+   a p rounds the other way, four times the most one p's rounding moves
+   the output (``2**-7 max_s p_s |v_s|``) more; the plain p.v summed in
+   fp32 (cuBLAS's reduced-precision bf16 reduction off);
 11. lm_time   — per LM kernel at the main path's shapes (batch 4, 1536
    tokens; flash at the four attention shapes above, rwkv6-7b's scan):
    the kernel, its plain version and the library call where one exists,
@@ -132,7 +140,12 @@ tuned arch); any failure propagates and the script exits non-zero:
    also in fp32 (``time_flash_fp32``: its ``csrc/flash_attention.cu``
    route, split TF32 on the tensor cores, which lm_main's fp32 control
    runs), against its plain version at 2e-5 and SDPA in fp32 at 1e-4,
-   with the device kernels SDPA runs, by name;
+   with the device kernels SDPA runs, by name; the decode-attention
+   kernel at the benchmark's decode step (deepseek-moe-16b, batch 64, a
+   cache of 320 slots, 16 kv heads of 128), held to its plain version by
+   ``check_decode`` at positions 287 and 319 and timed at 319 (the cache
+   full) beside the plain version and SDPA (bf16, no mask; timed, not
+   compared), its bound the caches' bytes;
 12. lm_main  — per arch (gemma3-4b, rwkv6-7b, deepseek-moe-16b,
    zamba2-2.7b) at full published width in bf16 with random weights
    from seed 0: ``LMSession(backend="cuda-lm")`` with the kernel policy
@@ -251,7 +264,9 @@ tuned arch); any failure propagates and the script exits non-zero:
    same shapes, beside the plain version and SDPA in fp32, timed in
    phase 11; its launches, counted apart, and its bound at 3 TF32
    products a product, 495 TFLOP/s, with fp32 FMA's 67 TFLOP/s bound
-   beside it);
+   beside it); decode attention's per decode step of the benchmark's
+   28 layers (its launches: two a layer a generation on the card in
+   bf16, the eager step and the capture; a replay runs no Python);
 23. the last line — ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -293,6 +308,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
         "src/repro/kernels/flash_attention.py:26"),
     "linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
                     "src/repro/kernels/linear_scan.py:31"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "none: added for the decode step"),
 }
 FLASH_FP32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # the LM main path: 4 prompts of 1536 tokens (longer than gemma3-4b's
@@ -331,7 +348,12 @@ BF16_ROUND_RTOL, BF16_ROUND_ATOL = 2.0 ** -8, 1e-5
 # the type of the kernels line's max_abs_err per LM kernel: flash's bf16
 # kernel is the source named in KERNELS (the model runs bf16); the scan
 # keeps fp32 arithmetic for either type
-MAIN_DTYPE = {"flash_attention": "bfloat16", "linear_scan": "float32"}
+MAIN_DTYPE = {"flash_attention": "bfloat16", "linear_scan": "float32",
+              "decode_attention": "bfloat16"}
+# the benchmark's decode step (deepseek-moe-16b-port.chat): batch 64, a
+# cache of 256 + 64 slots, 16 kv heads of 128, 28 attention layers
+DECODE_STEP = dict(arch="deepseek-moe-16b", batch=64, slots=320, kv_heads=16,
+                   group=1, head_dim=128, layers=28)
 FLASH_CASES = [  # (b, hq, hkv, t, d, causal, window): the JAX suite's
     (1, 4, 4, 128, 32, True, None), (2, 8, 2, 128, 64, True, None),
     (1, 4, 1, 256, 32, True, 64), (1, 2, 2, 128, 32, False, None),
@@ -1362,6 +1384,7 @@ def main() -> int:
     from repro_torch.engine import InferenceSession, SessionConfig
     from repro_torch.kernels import build
     from repro_torch.kernels import conv2d as conv_mod
+    from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import linear_scan as scan_mod
     from repro_torch.kernels import maxpool2d as pool_mod
@@ -1385,7 +1408,8 @@ def main() -> int:
                "maxpool2d": (pool_mod, "launches"),
                "flash_attention": (flash_mod, "launches"),
                "flash_attention_f32": (flash_mod, "launches_f32"),
-               "linear_scan": (scan_mod, "launches")}
+               "linear_scan": (scan_mod, "launches"),
+               "decode_attention": (decode_mod, "launches")}
 
     def counts():
         return {name: getattr(mod, attr)
@@ -1821,7 +1845,12 @@ def main() -> int:
                                     device_digest)
     from repro_torch.models.kernel_policy import (DEFAULT_KERNELS,
                                                   PLAIN_KERNELS)
-    from repro_torch.kernels.ref import attention_ref, linear_scan_ref
+    from repro_torch.kernels.cases import (DECODE_ATOL, DECODE_ATTN_CASES,
+                                           DECODE_FLIP_SHARE, DECODE_RTOL,
+                                           check_decode)
+    from repro_torch.kernels.ref import (attention_ref,
+                                         decode_attention_ref,
+                                         linear_scan_ref)
     from repro_torch.models.align import pad_head_dim
     from repro_torch.models.layers import ParamInit
     from repro_torch.models.lm import (embed_tokens, make_decode_step,
@@ -1966,6 +1995,24 @@ def main() -> int:
                                 what),
                         compare(s2, s_full, 1e-5, 1e-5, what))
 
+    # the decode-attention kernel on its cases, a 0-d device position
+    decode_err = 0.0
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    for b, s, hkv, g, d, ring, window, pos in DECODE_ATTN_CASES:
+        q, k, v = (rand(shape, bf16) for shape in (
+            (b, 1, hkv * g, d), (b, s, hkv, d), (b, s, hkv, d)))
+        p_ = torch.tensor(pos, dtype=torch.int64, device=dev)
+        decode_err = max(decode_err, check_decode(
+            decode_mod.decode_attention_cuda(q, k, v, p_, window=window,
+                                             ring=ring),
+            decode_attention_ref(q, k, v, p_, window=window, ring=ring),
+            q, k, v, p_, window=window, ring=ring))
+        del q, k, v
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        reduced)
+    lm_err["decode_attention"] = {"bfloat16": decode_err}
+
     # two layers at full width, on random hidden states of the main shape
     positions = torch.arange(LM_PROMPT, device=dev)[None].expand(LM_BATCH,
                                                                  -1)
@@ -2021,7 +2068,11 @@ def main() -> int:
                     "linear_scan": {"float32": 1e-4, "bfloat16": 5e-2},
                     "bfloat16_vs_fp32": {"rtol": BF16_ROUND_RTOL,
                                          "atol": BF16_ROUND_ATOL},
-                    "state_carry": 1e-5, "padded_head_dim": 2e-5},
+                    "state_carry": 1e-5, "padded_head_dim": 2e-5,
+                    "decode_attention": {
+                        "rtol": DECODE_RTOL, "atol": DECODE_ATOL,
+                        "p_flips_share": DECODE_FLIP_SHARE}},
+         decode_attention_cases=len(DECODE_ATTN_CASES),
          max_abs_err=lm_err, state_carry_err=carry_err,
          flash_query_offset=dict(cases=len(offset_cases), rows="last quarter",
                                  max_abs_err=offset_err),
@@ -2083,6 +2134,37 @@ def main() -> int:
         library_ms=None, nbytes=nbytes(*args, y, s_t),
         ops=5 * LM_BATCH * t * rwkv_h * rwkv_n * rwkv_n,
         ops_rate="fp32 outside the tensor cores, 67 TFLOP/s"))
+    ds = DECODE_STEP
+    q, k, v = (rand(shape, bf16) for shape in (
+        (ds["batch"], 1, ds["kv_heads"] * ds["group"], ds["head_dim"]),
+        (ds["batch"], ds["slots"], ds["kv_heads"], ds["head_dim"]),
+        (ds["batch"], ds["slots"], ds["kv_heads"], ds["head_dim"])))
+    # held to the plain version at a position of the cell's step (its
+    # prompts fill 256 slots) and at the last, which the times take
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    step_err = 0.0
+    for at in (ds["slots"] - 33, ds["slots"] - 1):
+        p_ = torch.tensor(at, dtype=torch.int64, device=dev)
+        o = decode_mod.decode_attention_cuda(q, k, v, p_)
+        step_err = max(step_err, check_decode(
+            o, decode_attention_ref(q, k, v, p_), q, k, v, p_))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        reduced)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lm_rows["decode_attention"] = [dict(
+        arch=ds["arch"], layer="decode step attention", per_step=ds["layers"],
+        q=list(q.shape), k=list(k.shape), pos=ds["slots"] - 1,
+        checked_pos=[ds["slots"] - 33, ds["slots"] - 1],
+        max_abs_err=step_err, dtype="bfloat16",
+        ms=graph_ms(torch, lambda: decode_mod.decode_attention_cuda(
+            q, k, v, p_)),
+        plain_ms=graph_ms(torch, lambda: decode_attention_ref(q, k, v, p_)),
+        library_ms=graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt)),
+        nbytes=nbytes(q, k, v, o), ops=4 * q.numel() * ds["slots"],
+        ops_rate="fp32 outside the tensor cores, 67 TFLOP/s")]
+    del q, k, v, qt, kt, vt, o
     for kernel, rs in lm_rows.items():
         rate = BF16_OPS_PER_S if kernel == "flash_attention" else None
         for r in rs:
@@ -2206,6 +2288,12 @@ def main() -> int:
             return layers.count("R")
         return sum(k in "ALS" for k in layers)
 
+    def decode_launches(arch):
+        """Decode-attention launches of one kernel-policy generation on
+        the card in bf16: its attention blocks, in the eager step and in
+        the capture."""
+        return 2 * sum(k in "ALS" for k in kinds(ARCHS[arch]))
+
     def kernel_ms(arch):
         """The graphed ms of the arch's kernel per prefill (lm_time)."""
         return sum(r["per_prefill"] * r["ms"] for r in
@@ -2275,8 +2363,9 @@ def main() -> int:
             sess.generate(prompts[:, :128], 3)
         # the main path: one prefill and LM_NEW - 1 decode steps through
         # each session, counted from 0; the kernel policy launches its
-        # kernel once per layer of the prefill and never in decode, the
-        # plain policy never
+        # prefill kernel once per layer of the prefill and the decode
+        # attention once per attention layer of the eager step and of the
+        # capture (a replay runs no Python), the plain policy neither
         runs, run_launches = {}, {}
         for name, sess in (("kernels", kern), ("plain", plain)):
             reset_counts()
@@ -2320,7 +2409,9 @@ def main() -> int:
             eager_decode_tok_s=LM_BATCH * (LM_NEW - 1) / eager["decode_s"],
             eager_steady_step_ms=statistics.median(esteps[1:]) * 1e3,
             **graph_gate)
-        want_launches = {k: per_prefill(arch) if k == kernel else 0
+        want_launches = {k: per_prefill(arch) if k == kernel
+                         else decode_launches(arch)
+                         if k == "decode_attention" else 0
                          for k in counted}
         if run_launches != {"kernels": want_launches,
                             "plain": dict.fromkeys(counted, 0)}:
@@ -2510,8 +2601,9 @@ def main() -> int:
             got = counts()
             launches[f"lm_launch {arch} {moe}"] = got
             coll = be.par.coll.summary()
-            want = {k: per_prefill(arch) if k == "flash_attention" else 0
-                    for k in counted}
+            want = {k: per_prefill(arch) if k == "flash_attention"
+                    else decode_launches(arch)
+                    if k == "decode_attention" else 0 for k in counted}
             if got != want:
                 raise AssertionError(f"{arch} {moe}: launches {got}, want "
                                      f"{want}")
@@ -2718,7 +2810,13 @@ def main() -> int:
             "launches": sum(got[kernel] for got in launches.values()),
             "max_abs_err": (err[kernel] if kernel in err
                             else lm_err[kernel][MAIN_DTYPE[kernel]])}
-        if kernel in rows:
+        if kernel == "decode_attention":
+            r = rs[0]
+            entry.update(summary([dict(r, per_prefill=r["per_step"])]))
+            entry.update(per=f"{r['arch']} decode step", batch=r["k"][0],
+                         slots=r["k"][1], layers=r["per_step"],
+                         layer_ms=r["ms"], layer_bound_ms=r["bound_ms"])
+        elif kernel in rows:
             entry.update(summary(rs))
             entry.update(per="robot forward", layers=len(rs), batch=BATCH,
                          inputs="cold" if kernel == "maxpool2d" else "warm")

@@ -47,6 +47,10 @@ SIGNATURES = {
     "flash_attention_bf16": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 4
     + [_F, _P],
     "flash_attention_f32_tiles": [_I, _P, _P],  # d, &block_q, &key_tile
+    # q, k, v, o, &pos, scratch; b, s, hkv, g, dh; q's, k's and v's
+    # strides; ring, windowed, window; pos, scale, chunk; stream
+    "decode_attention_bf16": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_I] * 3
+    + [_L, _F, _I, _P],
     "linear_scan_f32": [_P] * 7 + [_I] * 5 + [_P],
     "linear_scan_bf16": [_P] * 7 + [_I] * 5 + [_P],
 }

@@ -8,15 +8,17 @@ fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from .conv2d import conv2d_cuda
+from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
 from .linear_scan import linear_scan_cuda
 from .maxpool2d import maxpool2d_cuda
-from .ref import attention_ref, conv2d_ref, linear_scan_ref, maxpool2d_ref
+from .ref import (attention_ref, conv2d_ref, decode_attention_ref,
+                  linear_scan_ref, maxpool2d_ref)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -42,6 +44,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = attention_ref if q.device.type == "cpu" else flash_attention_cuda
     return fn(q, k, v, causal=causal, window=window, scale=scale,
               q_start=q_start)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: Union[int, torch.Tensor],
+                     *, window: Optional[int] = None,
+                     ring: bool = False) -> torch.Tensor:
+    """q (B,1,H,Dh) against k_cache / v_cache (B,S,Hkv,Dh), the new token
+    at position ``pos`` (an int or a 0-d int64 tensor on the device) ->
+    (B,1,H,Dh) in q's type; the CUDA kernel takes bf16 alone, the plain
+    version runs for caches off the card."""
+    fn = decode_attention_cuda if k_cache.is_cuda else decode_attention_ref
+    return fn(q, k_cache, v_cache, pos, window=window, ring=ring)
 
 
 def linear_scan(decay: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -108,6 +108,51 @@ def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
     return o.reshape(b, hq, t, d).to(q.dtype)
 
 
+def decode_probs_ref(q, k_cache, pos, *, window=None, ring: bool = False,
+                     scale=None, scores=None):
+    """The fp32 attention weights p (B, Hkv, G, S) of
+    :func:`decode_attention_ref`, before their rounding to the cache's
+    type: zero where the mask leaves a slot out."""
+    b, s, hkv, dh = k_cache.shape
+    h = q.shape[2]
+    scale = dh ** -0.5 if scale is None else scale
+    qh = q.reshape(b, hkv, h // hkv, dh).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qh, k_cache.float())
+    if scores is not None:
+        logits = scores(logits)
+    logits = logits * scale
+    slots = torch.arange(s, device=q.device)
+    slot_pos = pos - torch.remainder(pos - slots, s) if ring else slots
+    mask = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        mask &= (pos - slot_pos) < window
+    logits = logits.masked_fill(~mask, NEG_INF)
+    return torch.softmax(logits, dim=-1).masked_fill(~mask, 0.0)
+
+
+def decode_attention_ref(q, k_cache, v_cache, pos, *, window=None,
+                         ring: bool = False, scale=None, scores=None):
+    """Plain version of ``csrc/decode_attention.cu``, and the decode
+    step's attention wherever the kernel is not taken: one-token
+    attention against a cache, the JAX package's
+    ``decode_attention_jax``.
+
+    q (B,1,H,Dh); k_cache/v_cache (B,S,Hkv,Dh); pos the position of the
+    new token, a Python int or a 0-d integer tensor on q's device (the
+    mask is then built on the device); the cache already holds the new
+    token at its slot.  ``ring=True``
+    means the cache is a rolling buffer of S slots, slot s holding
+    position ``pos - ((pos - s) mod S)``.  ``scores``, if given, takes
+    the raw fp32 scores (B, Hkv, G, S) before the scale and the mask: a
+    rank holding a slice of the head dim passes the sum over ``model``
+    of its partial scores (and ``scale`` of the whole head dim)."""
+    b, _, _, dh = k_cache.shape
+    p = decode_probs_ref(q, k_cache, pos, window=window, ring=ring,
+                         scale=scale, scores=scores)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(b, 1, q.shape[2], dh).to(q.dtype)
+
+
 def linear_scan_ref(decay, k, v, r, s0):
     """Plain version of ``csrc/linear_scan.cu``: a loop over T of
     ``S = decay_t * S + k_t^T v_t; y_t = r_t S`` in fp32.

@@ -35,9 +35,12 @@ are fp32 sums of exact products).  The two policies agree within the
 bf16 tolerance of 3e-2 (``tests/test_torch_lm_model.py`` pins the gap
 on a bf16 ``.smoke()`` config); in fp32 they are the same function.
 
-Decode (T == 1) always runs the plain
-:func:`repro_torch.models.layers.decode_attention` and the plain RWKV
-step.
+Decode (T == 1) runs the plain RWKV step.  Its attention takes the
+decode-attention kernel (:mod:`repro_torch.kernels.decode_attention`)
+under ``"flash_pallas"`` where the caches are bf16 on the card and the
+scores are whole; everywhere else (the CPU, fp32 caches, the other two
+policies, the head-dim split's partial scores) the plain
+:func:`repro_torch.kernels.ref.decode_attention_ref`.
 """
 from __future__ import annotations
 

@@ -21,8 +21,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ref import NEG_INF
-
 
 # ------------------------------------------------------------------ norms ----
 
@@ -114,41 +112,6 @@ def gated_mlp(x, p, act: str = "silu"):
     if "wu" in p:
         h = h * linear(x, p["wu"])
     return linear(h, p["wd"])
-
-
-# -------------------------------------------------------------- attention ----
-
-def decode_attention(q, k_cache, v_cache, pos, *, window=None,
-                     ring: bool = False, scale=None, scores=None):
-    """One-token attention against a cache (plain torch; the JAX
-    package's ``decode_attention_jax``).
-
-    q (B,1,H,Dh); k_cache/v_cache (B,S,Hkv,Dh); pos the position of the
-    new token, a Python int or a 0-d integer tensor on q's device (the
-    mask is then built on the device); the cache already holds the new
-    token at its slot.  ``ring=True``
-    means the cache is a rolling buffer of S slots, slot s holding
-    position ``pos - ((pos - s) mod S)``.  ``scores``, if given, takes
-    the raw fp32 scores (B, Hkv, G, S) before the scale and the mask: a
-    rank holding a slice of the head dim passes the sum over ``model``
-    of its partial scores (and ``scale`` of the whole head dim)."""
-    b, s, hkv, dh = k_cache.shape
-    h = q.shape[2]
-    scale = dh ** -0.5 if scale is None else scale
-    qh = q.reshape(b, hkv, h // hkv, dh).float()
-    logits = torch.einsum("bhgd,bshd->bhgs", qh, k_cache.float())
-    if scores is not None:
-        logits = scores(logits)
-    logits = logits * scale
-    slots = torch.arange(s, device=q.device)
-    slot_pos = pos - torch.remainder(pos - slots, s) if ring else slots
-    mask = (slot_pos >= 0) & (slot_pos <= pos)
-    if window is not None:
-        mask &= (pos - slot_pos) < window
-    logits = logits.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(logits, dim=-1).masked_fill(~mask, 0.0)
-    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype), v_cache)
-    return o.reshape(b, 1, h, dh).to(q.dtype)
 
 
 # ------------------------------------------------------------------- init ----

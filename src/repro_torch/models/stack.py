@@ -44,7 +44,6 @@ from .config import ModelConfig
 from .kernel_policy import DEFAULT_KERNELS, KernelPolicy
 from .layers import (
     ParamInit,
-    decode_attention,
     gated_mlp,
     layer_norm,
     linear,
@@ -241,6 +240,19 @@ def _prefill_attention(q, k, v, cfg: ModelConfig, kind: str,
     return o.transpose(1, 2)
 
 
+def _decode_attention(q, k_cache, v_cache, pos, pol: KernelPolicy, *,
+                      window, ring: bool):
+    """A decode step's attention (T == 1) against this rank's caches:
+    :func:`repro_torch.kernels.ops.decode_attention` (the decode-attention
+    kernel on the card, its plain version on the CPU) where the policy
+    takes the kernels (``"flash_pallas"``) and the caches are bf16, the
+    plain :func:`~repro_torch.kernels.ref.decode_attention_ref`
+    otherwise."""
+    fn = (ops.decode_attention if pol.attention == "flash_pallas"
+          and k_cache.dtype == torch.bfloat16 else ref.decode_attention_ref)
+    return fn(q, k_cache, v_cache, pos, window=window, ring=ring)
+
+
 def _write_slot(cache, k, v, pos, ring: bool):
     """A decode step's k and v (B, 1, Hkv, Dh) into their cache slot
     (``pos`` an int or a 0-d device tensor: then no sync)."""
@@ -329,9 +341,10 @@ def attention_block(x, p, cfg: ModelConfig, kernels: KernelPolicy,
     if cache is not None and t == 1:
         ring = kind == "L" and cfg.window is not None
         _write_slot(cache, k, v, pos, ring)
-        o = decode_attention(q, attended(cache["k"]), attended(cache["v"]),
-                             pos, window=cfg.window if kind == "L" else None,
-                             ring=ring)
+        o = _decode_attention(q, attended(cache["k"]), attended(cache["v"]),
+                              pos, kernels,
+                              window=cfg.window if kind == "L" else None,
+                              ring=ring)
     else:
         if cache is not None:  # prefill: populate the cache
             _fill_cache(cache, k, v)
@@ -406,9 +419,11 @@ def _head_dim_decode(x, p, cfg: ModelConfig, kind: str, *, positions,
     q, k = _apply_rope(cfg, q, k, positions, pos3)
     ring = kind == "L" and cfg.window is not None
     _write_slot(cache, _dh_slice(k, par), _dh_slice(v, par), pos, ring)
-    o = decode_attention(_dh_slice(q, par), cache["k"], cache["v"], pos,
-                         window=cfg.window if kind == "L" else None,
-                         ring=ring, scale=dh ** -0.5, scores=par.model_sum)
+    # partial scores, summed over ``model``: the kernel cannot take them
+    o = ref.decode_attention_ref(
+        _dh_slice(q, par), cache["k"], cache["v"], pos,
+        window=cfg.window if kind == "L" else None, ring=ring,
+        scale=dh ** -0.5, scores=par.model_sum)
     o = par.gather_out(o, -1).reshape(b, 1, h * dh)
     y = linear(o.narrow(-1, r * (h * dh // n), h * dh // n), p["wo"])
     return par.region_out(y)

@@ -25,7 +25,7 @@ from repro.models.kernel_policy import KernelPolicy as JaxKernelPolicy
 from repro.models.stack import DEFAULT_PAR
 from repro.models.stack import init_params as jax_init_params
 from repro_torch.configs.lm_archs import ARCHS
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, decode_attention_ref
 from repro_torch.models import layers, lm, ssm
 from repro_torch.models.kernel_policy import DEFAULT_KERNELS, PLAIN_KERNELS
 from repro_torch.models.stack import init_cache, init_params
@@ -105,9 +105,9 @@ def test_decode_attention_matches(ring, window, pos):
     s = 8 if ring else 12
     q = _rnd(11, (2, 1, 4, 16))
     kc, vc = _rnd(12, (2, s, 2, 16)), _rnd(13, (2, s, 2, 16))
-    got = layers.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
-                                  torch.from_numpy(vc), pos, window=window,
-                                  ring=ring)
+    got = decode_attention_ref(torch.from_numpy(q), torch.from_numpy(kc),
+                               torch.from_numpy(vc), pos, window=window,
+                               ring=ring)
     _close(got, jlayers.decode_attention_jax(q, kc, vc, jnp.int32(pos),
                                              window=window, ring=ring), 1e-5)
 
